@@ -5,25 +5,38 @@
 
 Phases, in order; any failure exits non-zero:
   1. device  — requires CUDA; prints the card's name and power limit.
-  2. build   — compiles the CUDA kernels (csrc/attention.cu) with nvcc.
+  2. build   — compiles the CUDA kernels (csrc/attention.cu, csrc/ssd.cu)
+               with nvcc, one process per source, in parallel.
   3. kernels — each of the four attention kernels against its plain
                PyTorch version at the serving path's full-width shapes
                (tinyllama-1.1b: 32 query heads, 4 KV heads, head dim 64)
                in bf16 and f32, plus edge cases (idle slot, garbage table
-               entries, ragged tail, mid-block q_offset); times each kernel,
-               its plain version and scaled_dot_product_attention on the
-               same work (a yardstick only: the port never calls it),
-               replayed from a CUDA graph and issued eagerly.
+               entries, ragged tail, mid-block q_offset); ssd_chunked
+               against ssd_chunked_ref (and ssd_ref) at the mamba2-130m
+               prefill shape, plus edge cases (f32 x, two rows, T shorter
+               than the chunk, a ragged T that must raise). Times each
+               kernel, its plain version and, for attention,
+               scaled_dot_product_attention on the same work (a yardstick
+               only: the port never calls it), replayed from a CUDA graph
+               and issued eagerly.
   4. serve   — tinyllama-1.1b at full width (22 layers, random weights
                from a seed, bf16) serving 16 requests through the engine
                in its three modes: contiguous, paged, and paged with
                prefix cache + chunked prefill. Every request must finish
-               and every kernel must have been launched. Then a profile
-               of steady contiguous decode: host time per engine step
-               against the device time of its kernels, by kind.
-  5. parity  — kernel path vs plain path end to end: identical greedy
-               tokens on the f32 smoke config in every mode, and close
-               last-position prefill logits at full width.
+               and every attention kernel must have been launched. Then a
+               profile of steady contiguous decode: host time per engine
+               step against the device time of its kernels, by kind.
+  5. fabric  — mamba2-130m at full width (24 layers, random weights from a
+               seed, bf16) serving 16 requests through a 2-replica
+               GLBReplicaBalancer (replica 0 contiguous, replica 1 paged),
+               all placed on replica 0 so that tier-1 steals must happen.
+               The fabric must terminate with every request done, and
+               ssd_chunked must have been launched. Then one admission's
+               prefill under torch.profiler: ssd_chunked's share of it.
+  6. parity  — kernel path vs plain path end to end: identical greedy
+               tokens on the f32 smoke configs (tinyllama in every engine
+               mode, the mamba2 fabric), and close last-position prefill
+               logits at full width (both models).
 The last two lines of standard output are one JSON object with each
 kernel's numbers and the contract line {"ok": true, "device": {...}}.
 """
@@ -45,7 +58,9 @@ PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # Kernel vs plain version on the same inputs: bf16 outputs are rounded
 # once from f32 accumulators in both, so they differ by at most ~1 bf16
-# ulp of |o| <= 2 (2^-7); f32 differs only in summation order.
+# ulp of |o| <= 2 (2^-7); f32 differs only in summation order. SSD
+# outputs are not bounded by 2, so its tolerance is this much of
+# max(1, max |reference|) (one bf16 ulp is 2^-7 of the value).
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 
 REPLACES = {
@@ -53,8 +68,12 @@ REPLACES = {
     "flash_decode": "src/repro/kernels/flash_decode.py:90",
     "paged_decode": "src/repro/kernels/paged_decode.py:101",
     "paged_prefill": "src/repro/kernels/paged_decode.py:215",
+    "ssd_chunked": "src/repro/kernels/mamba2_ssd.py:80",
 }
-SOURCE = "src/repro_torch/csrc/attention.cu"
+SOURCES = {name: "src/repro_torch/csrc/attention.cu" for name in REPLACES}
+SOURCES["ssd_chunked"] = "src/repro_torch/csrc/ssd.cu"
+ATTENTION = ("flash_attention", "flash_decode", "paged_decode",
+             "paged_prefill")
 
 # Full-width serving configuration (phase 4).
 SERVE = dict(max_slots=8, max_seq=1024, pad_len=256, steps_per_sync=8)
@@ -130,15 +149,19 @@ def phase_build():
     from repro_torch.kernels import _build
 
     t0 = time.time()
-    path = _build.build()
-    _build.lib()
-    report = path.with_suffix(".log").read_text()
-    regs = [int(r) for r in re.findall(r"Used (\d+) registers", report)]
-    spills = sum(int(s) for s in
-                 re.findall(r"(\d+) bytes spill stores", report))
-    log(f"[build] {path.name} in {time.time() - t0:.1f} s; "
-        f"{len(regs)} kernels, max {max(regs)} registers, "
-        f"{spills} bytes of spill stores in all")
+    paths = _build.build_all()
+    wall = time.time() - t0
+    for name, path in paths.items():
+        _build.lib(name)
+        report = path.with_suffix(".log").read_text()
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers",
+                                           report)]
+        spills = sum(int(s) for s in
+                     re.findall(r"(\d+) bytes spill stores", report))
+        log(f"[build] {path.name}: {len(regs)} kernels, max {max(regs)} "
+            f"registers, {spills} bytes of spill stores in all")
+    log(f"[build] {len(paths)} libraries in {wall:.1f} s (nvcc in "
+        "parallel)")
 
 
 # ------------------------------------------------------------ phase 3
@@ -326,7 +349,7 @@ def phase_kernels():
             (plain_ms, plain_eager), (lib_ms, lib_eager) = (
                 time_ms(plain), time_ms(lib))
             row = dict(
-                name=name, route="cuda", source=SOURCE,
+                name=name, route="cuda", source=SOURCES[name],
                 replaces=REPLACES[name], launches=0, max_abs_err=err,
                 ms=ms, plain_ms=plain_ms, bound_ms=max(bound_b, bound_f),
                 bound_by="bytes" if bound_b >= bound_f else "operations",
@@ -338,7 +361,106 @@ def phase_kernels():
                 f"{row['bound_ms']:.5f} ({row['bound_by']}: {nbytes} B, "
                 f"{flops} flop); issued eagerly: kernel {eager:.4f} "
                 f"plain {plain_eager:.4f} library {lib_eager:.4f} ms")
+    rows["ssd_chunked"] = kernel_ssd(rng)
     return rows
+
+
+# The mamba2-130m prefill: one 256-token bucket, 24 heads of 64, state
+# 128, chunks of 64 (the chunk mamba_fwd asks for).
+SSD_MAIN = dict(Bt=1, T=256, H=24, P=64, N=128)
+SSD_CHUNK = 64
+
+
+def _ssd_inputs(rng, dtype, Bt, T, H, P, N):
+    """x, dt, A, B, C distributed as mamba_fwd makes them at init:
+    dt = softplus(normal), A = -exp(small normal)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    f = lambda *s: torch.from_numpy(
+        rng.standard_normal(s).astype(np.float32)).to(DEVICE)
+    return (f(Bt, T, H, P).to(dtype), F.softplus(f(Bt, T, H)),
+            -torch.exp(0.5 * f(H)), f(Bt, T, N), f(Bt, T, N))
+
+
+def kernel_ssd(rng):
+    """ssd_chunked against ssd_chunked_ref at the main shape and the edge
+    cases (and against the sequential ssd_ref at the main shape); times
+    the main shape. Returns its row of the summary."""
+    import torch
+
+    from repro_torch.kernels import mamba2_ssd as ms
+
+    cases = (("main", "bfloat16", SSD_MAIN),
+             ("f32-x", "float32", SSD_MAIN),
+             ("two-rows", "bfloat16", dict(SSD_MAIN, Bt=2, T=128)),
+             ("short-T", "bfloat16", dict(SSD_MAIN, T=24)),
+             ("short-T", "float32", dict(SSD_MAIN, T=24)))
+    row = None
+    for label, dtype_name, shp in cases:
+        args = _ssd_inputs(rng, getattr(torch, dtype_name), **shp)
+        kern = lambda a=args: ms.ssd_chunked(*a, chunk=SSD_CHUNK)
+        plain = lambda a=args: ms.ssd_chunked_ref(*a, chunk=SSD_CHUNK)
+        (y, h), (yr, hr) = kern(), plain()
+        wants = [("ssd_chunked_ref", yr, hr)]
+        if label == "main":
+            wants.append(("ssd_ref", *ms.ssd_ref(*args)))
+        torch.cuda.synchronize()
+        if not (torch.isfinite(y.float()).all() and torch.isfinite(h).all()):
+            fail(f"ssd_chunked/{label}/{dtype_name}: non-finite output")
+        for ref_name, yw, hw in wants:
+            ey = (y.float() - yw.float()).abs().max().item()
+            eh = (h - hw).abs().max().item()
+            sy = max(1.0, yw.float().abs().max().item())
+            sh = max(1.0, hw.abs().max().item())
+            ok = ey <= TOL[dtype_name] * sy and eh <= TOL["float32"] * sh
+            log(f"[kernels] ssd_chunked     {label:12s} {dtype_name:8s} "
+                f"vs {ref_name}: y max_abs_err {ey:.3e} (tol "
+                f"{TOL[dtype_name]:g} x {sy:.3g}), h max_abs_err {eh:.3e} "
+                f"(tol {TOL['float32']:g} x {sh:.3g}) "
+                f"{'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                fail(f"ssd_chunked/{label}/{dtype_name} disagrees with "
+                     f"{ref_name}: y {ey}, h {eh}")
+        if label != "main":
+            continue
+        Bt, T, H, P, N = (shp[k] for k in ("Bt", "T", "H", "P", "N"))
+        L = min(SSD_CHUNK, T)
+        nck = T // L
+        nbytes = sum(t.numel() * t.element_size() for t in (*args, y, h))
+        # C B^T once per chunk (one B/C group), then per head and chunk
+        # the masked product with dt x, C h_in, and the state update.
+        flops = (2 * Bt * nck * L * L * N
+                 + Bt * H * nck * (2 * L * L * P + 4 * L * N * P))
+        bound_b = nbytes / PEAK_BYTES * 1e3
+        bound_f = flops / PEAK_FLOPS["float32"] * 1e3    # f32 math
+        ms_k, eager = time_ms(kern)
+        ms_p, plain_eager = time_ms(plain)
+        row = dict(
+            name="ssd_chunked", route="cuda", source=SOURCES["ssd_chunked"],
+            replaces=REPLACES["ssd_chunked"], launches=0,
+            max_abs_err=(y.float() - yr.float()).abs().max().item(),
+            ms=ms_k, plain_ms=ms_p, bound_ms=max(bound_b, bound_f),
+            bound_by="bytes" if bound_b >= bound_f else "operations",
+            library_ms=None)
+        log(f"[kernels] ssd_chunked     kernel_ms {ms_k:.4f} plain_ms "
+            f"{ms_p:.4f} library_ms none (no single PyTorch call computes "
+            f"the SSD scan) bound_ms {row['bound_ms']:.5f} "
+            f"({row['bound_by']}: {nbytes} B at {PEAK_BYTES:g} B/s = "
+            f"{bound_b:.5f} ms, {flops} f32 flop at "
+            f"{PEAK_FLOPS['float32']:g}/s = {bound_f:.5f} ms); issued "
+            f"eagerly: kernel {eager:.4f} plain {plain_eager:.4f} ms")
+    # The chunk contract (JAX's): a ragged last chunk raises.
+    args = _ssd_inputs(rng, torch.bfloat16, **dict(SSD_MAIN, T=100))
+    try:
+        ms.ssd_chunked(*args, chunk=SSD_CHUNK)
+    except ValueError as e:
+        log(f"[kernels] ssd_chunked     ragged-T     T=100, chunk 64 "
+            f"raises as it must: {e}")
+    else:
+        fail("ssd_chunked accepted a ragged last chunk")
+    return row
 
 
 # ------------------------------------------------------------ phase 4
@@ -394,7 +516,7 @@ def phase_serve():
     log(f"[serve] {cfg.name}: {cfg.n_layers} layers d_model {cfg.d_model} "
         f"{cfg.n_heads}/{cfg.n_kv_heads} heads, {cfg.dtype}, weights in "
         f"{time.time() - t0:.1f} s")
-    totals = {name: 0 for name in ops.kernel_launches()}
+    totals = {name: 0 for name in ATTENTION}
     steps = {}
     for mode, kw in MODES.items():
         reqs = _requests(np.random.default_rng(1), cfg.vocab)
@@ -406,8 +528,8 @@ def phase_serve():
         torch.cuda.synchronize()
         wall = time.time() - t0
         counts = ops.kernel_launches()
-        for name, c in counts.items():
-            totals[name] += c
+        for name in ATTENTION:
+            totals[name] += counts[name]
         if not all(r.done for r in reqs):
             fail(f"{mode}: {sum(not r.done for r in reqs)} requests "
                  f"unfinished after {n} steps")
@@ -498,14 +620,135 @@ def phase_profile(params):
 
 
 # ------------------------------------------------------------ phase 5
-def phase_parity(params_full):
+def _fabric(cfg, params, reqs, kw, block_size):
+    """Two replicas, 0 contiguous and 1 paged, every request on 0."""
+    from repro_torch.serve import Engine, GLBReplicaBalancer
+
+    engines = [Engine(cfg, params, replica_id=0, device=DEVICE, **kw),
+               Engine(cfg, params, replica_id=1, device=DEVICE, paged=True,
+                      block_size=block_size, **kw)]
+    bal = GLBReplicaBalancer(engines)
+    for r in reqs:
+        bal.submit(r, rr=0)                 # tier-1 steals must happen
+    return bal
+
+
+def phase_fabric():
+    """mamba2-130m at full width through the 2-replica GLB fabric."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_lm
+
+    cfg = ARCHS["mamba2-130m"]
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    params = init_lm(cfg, gen, device=DEVICE)
+    torch.cuda.synchronize()
+    log(f"[fabric] {cfg.name}: {cfg.n_layers} layers d_model {cfg.d_model} "
+        f"{cfg.ssm_heads} SSM heads of {cfg.ssm_headdim}, state "
+        f"{cfg.ssm_state}, {cfg.param_count() / 1e6:.1f} M parameters, "
+        f"{cfg.dtype}")
+    reqs = _requests(np.random.default_rng(5), cfg.vocab)
+    bal = _fabric(cfg, params, reqs, SERVE, BLOCK)
+    torch.cuda.synchronize()
+    ops.reset_launches()                    # counts of this run only
+    t0 = time.time()
+    status = bal.run()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = ops.kernel_launches()
+    if status != "terminated":
+        fail(f"fabric: run() returned {status!r}")
+    if not all(r.done for r in reqs):
+        fail(f"fabric: {sum(not r.done for r in reqs)} requests unfinished")
+    for r in reqs:
+        if not r.out or min(r.out) < 0 or max(r.out) >= cfg.vocab:
+            fail(f"fabric: request {r.rid} emitted bad ids")
+    if bal.queue_moves <= 0:
+        fail("fabric: no tier-1 steal happened")
+    n = counts["ssd_chunked"]
+    if n <= 0 or n % cfg.n_layers or n < cfg.n_layers * len(reqs):
+        fail(f"fabric: ssd_chunked launched {n} times, want "
+             f"{cfg.n_layers} per admission for {len(reqs)} requests")
+    if any(counts[name] for name in ATTENTION):
+        fail(f"fabric: an attention kernel ran on an ssm model: {counts}")
+    st = bal.merged_metrics().snapshot()
+    toks = sum(e.tokens_out for e in bal.engines)
+    log(f"[fabric] {len(reqs)} requests, {toks} tokens in {wall:.2f} s = "
+        f"{toks / wall:.1f} tok/s; TTFT p50 {st['ttft_ms_p50']:.1f} ms p99 "
+        f"{st['ttft_ms_p99']:.1f} ms; engine steps per replica "
+        f"{[e.steps for e in bal.engines]}; {bal.supersteps} supersteps; "
+        f"{len(bal.decisions)} steal decisions, {bal.queue_moves} requests "
+        f"moved: {bal.decisions}; tokens per replica "
+        f"{[e.tokens_out for e in bal.engines]}; run() {status!r}")
+    log(f"[fabric] launches {counts}: {n // cfg.n_layers} admissions x "
+        f"{cfg.n_layers} layers")
+    return params, n
+
+
+def phase_prefill_profile(params):
+    """One admission of the mamba2-130m engine (a 256-token bucket through
+    24 layers): host time, then the same work under torch.profiler, whose
+    kernel records give ssd_chunked's share."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.serve import Engine
+
+    cfg = ARCHS["mamba2-130m"]
+    eng = Engine(cfg, params, device=DEVICE, **SERVE)
+    reqs = _requests(np.random.default_rng(6), cfg.vocab, n=3)
+
+    def admit(req):                     # prefill into the next free slot
+        eng.submit(req)
+        with torch.inference_mode():
+            eng._admit()
+        torch.cuda.synchronize()
+
+    admit(reqs[0])                      # warm-up
+    t0 = time.time()
+    admit(reqs[1])
+    wall = (time.time() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        admit(reqs[2])
+    busy = ssd = 0.0
+    n_ssd = records = 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        ms = e.time_range.elapsed_us() / 1e3
+        busy += ms
+        records += 1
+        if "ssd_chunked_kernel" in e.name:
+            ssd += ms
+            n_ssd += 1
+    log(f"[fabric] one admission (prefill of a {SERVE['pad_len']}-token "
+        f"bucket, {cfg.n_layers} layers): {wall:.2f} ms on the host clock")
+    if records == 0:
+        log("[fabric] device time not measured: the profiler recorded no "
+            "kernel")
+        return
+    log(f"[fabric] profiled admission: device busy {busy:.3f} ms in "
+        f"{records} records; ssd_chunked {ssd:.3f} ms in {n_ssd} launches "
+        f"= {100 * ssd / busy:.1f}% of the device time, "
+        f"{100 * ssd / wall:.1f}% of the admission's host time")
+
+
+# ------------------------------------------------------------ phase 6
+def phase_parity(params_full, mamba_full):
     import dataclasses
 
     import numpy as np
     import torch
 
     from repro_torch.configs import ARCHS
-    from repro_torch.models import forward, init_lm
+    from repro_torch.models import init_lm
     from repro_torch.serve import Engine
 
     # (a) f32 smoke config: kernel path vs plain path, greedy tokens.
@@ -535,8 +778,45 @@ def phase_parity(params_full):
             fail(f"greedy tokens differ between kernel and plain path "
                  f"({mode})")
 
-    # (b) full width, bf16: last-position prefill logits.
-    cfg = ARCHS["tinyllama-1.1b"]
+    # (b) the mamba2 f32 smoke fabric (contiguous + paged replica, every
+    # request on replica 0): kernel (ssd_chunked) vs plain (the
+    # sequential ssd_ref) greedy tokens and steal decisions.
+    base = ARCHS["mamba2-130m"].smoke()
+    params = init_lm(base, gen, device=DEVICE)
+    outs = []
+    for impl in ("auto", "ref"):
+        cfg = dataclasses.replace(base, attn_impl=impl, decode_impl=impl)
+        rng = np.random.default_rng(2)
+        reqs = [_smoke_req(rng, i) for i in range(8)]
+        bal = _fabric(cfg, params, reqs, kw, 8)
+        if bal.run() != "terminated" or not all(r.done for r in reqs):
+            fail(f"parity mamba2 fabric/{impl}: did not finish")
+        outs.append(([r.out for r in reqs], bal.decisions))
+    same = outs[0] == outs[1]
+    log(f"[parity] f32 smoke mamba2 fabric: kernel vs plain greedy tokens "
+        f"and steal decisions {'identical' if same else 'DIFFER'} "
+        f"({len(outs[0][1])} decisions)")
+    if not same:
+        fail("greedy tokens differ between kernel and plain path (mamba2 "
+             "fabric)")
+
+    # (c) full width, bf16: last-position prefill logits.
+    _logit_parity(ARCHS["tinyllama-1.1b"], params_full)
+    _logit_parity(ARCHS["mamba2-130m"], mamba_full)
+
+
+def _logit_parity(cfg, params):
+    """Kernel vs plain path on one 256-token prompt at full width, bf16:
+    the last position's logits. Both paths round activations to bf16
+    between layers, and 22-24 layers compound one-ulp differences: hold
+    them to 5% of the logit range."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models import forward
+
     rng = np.random.default_rng(3)
     toks = torch.as_tensor(rng.integers(1, cfg.vocab, (1, 256)),
                            dtype=torch.int32, device=DEVICE)
@@ -544,20 +824,18 @@ def phase_parity(params_full):
     with torch.inference_mode():
         for impl in ("auto", "ref"):
             c = dataclasses.replace(cfg, attn_impl=impl, decode_impl=impl)
-            lg[impl] = forward(params_full, c, toks)[0][0, -1].float()
+            lg[impl] = forward(params, c, toks)[0][0, -1].float()
     if not torch.isfinite(lg["auto"]).all():
-        fail("full-width prefill logits are not finite")
+        fail(f"{cfg.name}: full-width prefill logits are not finite")
     err = (lg["auto"] - lg["ref"]).abs().max().item()
     scale = lg["ref"].abs().max().item()
-    # Both paths round q/k/v and the attention output to bf16; 22 layers
-    # compound one-ulp differences. Hold them to 5% of the logit range.
     ok = err <= 0.05 * scale
-    log(f"[parity] full-width bf16 last-position logits: max_abs_err "
-        f"{err:.4e} vs max |logit| {scale:.4e} (tol 5%) "
+    log(f"[parity] {cfg.name} full-width bf16 last-position logits: "
+        f"max_abs_err {err:.4e} vs max |logit| {scale:.4e} (tol 5%) "
         f"{'ok' if ok else 'MISMATCH'}; argmax "
         f"{int(lg['auto'].argmax())} vs {int(lg['ref'].argmax())}")
     if not ok:
-        fail("full-width prefill logits disagree")
+        fail(f"{cfg.name}: full-width prefill logits disagree")
 
 
 def _smoke_req(rng, i):
@@ -586,12 +864,18 @@ def main() -> int:
     rows = phase_kernels()
     params, totals, steps = phase_serve()
     phase_profile(params)
-    phase_parity(params)
+    mamba, ssd_launches = phase_fabric()
+    phase_prefill_profile(mamba)
+    phase_parity(params, mamba)
     all_steps = sum(steps.values())
-    for name, row in rows.items():
-        row["launches"] = totals[name]
+    for name in ATTENTION:
+        rows[name]["launches"] = totals[name]
         log(f"[summary] {name}: {totals[name]} launches over {all_steps} "
-            f"engine steps = {totals[name] / all_steps:.2f} per step")
+            f"engine steps of the tinyllama-1.1b runs = "
+            f"{totals[name] / all_steps:.2f} per step")
+    rows["ssd_chunked"]["launches"] = ssd_launches
+    log(f"[summary] ssd_chunked: {ssd_launches} launches in the "
+        "mamba2-130m fabric run")
     log(f"[summary] card: {smi}")
     print(json.dumps({"kernels": [rows[n] for n in REPLACES]}))
     print(json.dumps({"ok": True, "device": {

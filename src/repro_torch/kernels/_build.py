@@ -1,12 +1,14 @@
-"""Build and load the CUDA kernels of ``csrc/attention.cu``.
+"""Build and load the CUDA kernels of ``csrc/*.cu``.
 
-The source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface (no PyTorch headers, so it builds in seconds) and
-loaded with ctypes. The build lands in ``build/repro_torch/`` at the root
-of the checkout, named by a hash of the source and flags, so an edited
-source rebuilds and an unchanged one is reused. Nothing is built at
-import: the first kernel launch builds. A missing ``nvcc`` or a failed
-build raises.
+Each source (``attention.cu``, ``ssd.cu``) is compiled by ``nvcc`` for
+``sm_90a`` into a shared library of its own with a plain C interface (no
+PyTorch headers, so it builds in seconds) and loaded with ctypes. The
+builds land in ``build/repro_torch/`` at the root of the checkout, each
+named by a hash of its source and the flags, so an edited source rebuilds
+its own library only and an unchanged one is reused. Nothing is built at
+import: the first launch of a kernel builds its library, and
+``build_all`` builds every library at once, one ``nvcc`` per source, all
+running together. A missing ``nvcc`` or a failed build raises.
 """
 from __future__ import annotations
 
@@ -16,36 +18,47 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Dict
 
 import torch
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "attention.cu"
+SOURCES = {name: _PKG / "csrc" / f"{name}.cu" for name in ("attention",
+                                                           "ssd")}
 BUILD_DIR = _PKG.parent.parent / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C signature of each entry point (all return the launch's cudaError_t).
+# C signature of each library's entry points (all return the launch's
+# cudaError_t).
 SIGNATURES = {
-    # dtype, q, k, v, out, B, Sq, Skv, Hq, Hkv, D, causal, scale,
-    # nsplit, bq, stream
-    "repro_flash_attention": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                              _I, _F, _I, _I, _P],
-    # dtype, q, k, v, out, lengths, B, S, Hq, Hkv, D, scale, nsplit, stream
-    "repro_flash_decode": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                           _I, _P],
-    # dtype, q, k, v, out, tables, lengths, B, NB, Bs, max_blocks, Hq,
-    # Hkv, D, scale, nsplit, stream
-    "repro_paged_decode": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                           _I, _I, _F, _I, _P],
-    # dtype, q, k, v, out, tables, lengths, q_offset, B, Sq, NB, Bs,
-    # max_blocks, Hq, Hkv, D, scale, nsplit, bq, stream
-    "repro_paged_prefill": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                            _I, _I, _I, _I, _F, _I, _I, _P],
+    "attention": {
+        # dtype, q, k, v, out, B, Sq, Skv, Hq, Hkv, D, causal, scale,
+        # nsplit, bq, stream
+        "repro_flash_attention": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                  _I, _I, _F, _I, _I, _P],
+        # dtype, q, k, v, out, lengths, B, S, Hq, Hkv, D, scale, nsplit,
+        # stream
+        "repro_flash_decode": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _F, _I, _P],
+        # dtype, q, k, v, out, tables, lengths, B, NB, Bs, max_blocks, Hq,
+        # Hkv, D, scale, nsplit, stream
+        "repro_paged_decode": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _I, _I, _I, _F, _I, _P],
+        # dtype, q, k, v, out, tables, lengths, q_offset, B, Sq, NB, Bs,
+        # max_blocks, Hq, Hkv, D, scale, nsplit, bq, stream
+        "repro_paged_prefill": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    },
+    "ssd": {
+        # dtype, x, dt, A, B, C, y, h, Bt, T, H, P, N, L, stream
+        "repro_ssd_chunked": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                              _I, _I, _I, _P],
+    },
 }
 
-_lib = None
+_libs: Dict[str, ctypes.CDLL] = {}
 
 
 def nvcc() -> str:
@@ -58,48 +71,68 @@ def nvcc() -> str:
     return path
 
 
-def library_path() -> Path:
+def library_path(name: str) -> Path:
     digest = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        SOURCES[name].read_bytes() + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
-    return BUILD_DIR / f"libattention_{digest}.so"
+    return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
-def build() -> Path:
-    """Compile the kernels unless this source was already built; returns
-    the library's path. The compiler's report (registers, spills) is kept
-    beside it as ``<lib>.log``."""
-    out = library_path()
+def _start(name: str):
+    """Start compiling ``name`` unless it is built; returns (output path,
+    temporary path, process), the process None when there is nothing to
+    do."""
+    out = library_path(name)
     if out.exists():
-        return out
+        return out, None, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-        capture_output=True, text=True,
+    proc = subprocess.Popen(
+        [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
     )
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    return out, tmp, proc
+
+
+def _finish(name: str, out: Path, tmp: Path, proc) -> Path:
+    if proc is None:
+        return out
+    stdout, stderr = proc.communicate()
+    out.with_suffix(".log").write_text(stdout + stderr)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) on {SOURCE}:\n"
-            f"{proc.stderr[-4000:]}"
+            f"nvcc failed ({proc.returncode}) on {SOURCES[name]}:\n"
+            f"{stderr[-4000:]}"
         )
     os.replace(tmp, out)      # atomic: a concurrent build sees all or none
     return out
 
 
-def lib() -> ctypes.CDLL:
-    """The loaded kernel library (built on first use)."""
-    global _lib
-    if _lib is None:
-        handle = ctypes.CDLL(str(build()))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(handle, name)
+def build(name: str) -> Path:
+    """Compile one library unless this source was already built; returns
+    its path. The compiler's report (registers, spills) is kept beside it
+    as ``<lib>.log``."""
+    return _finish(name, *_start(name))
+
+
+def build_all() -> Dict[str, Path]:
+    """Compile every library, one ``nvcc`` process per source, all started
+    before any is waited for."""
+    started = {name: _start(name) for name in SOURCES}
+    return {name: _finish(name, *s) for name, s in started.items()}
+
+
+def lib(name: str) -> ctypes.CDLL:
+    """The loaded kernel library ``name`` (built on first use)."""
+    if name not in _libs:
+        handle = ctypes.CDLL(str(build(name)))
+        for fn_name, argtypes in SIGNATURES[name].items():
+            fn = getattr(handle, fn_name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        _lib = handle
-    return _lib
+        _libs[name] = handle
+    return _libs[name]
 
 
 def check(err: int, name: str) -> None:

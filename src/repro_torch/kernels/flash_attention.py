@@ -65,7 +65,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
     out = torch.empty_like(q)
     nsplit, bq = _build.launch_plan(Sq, Hq // Hkv, Hkv * B)
-    err = _build.lib().repro_flash_attention(
+    err = _build.lib("attention").repro_flash_attention(
         code, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         B, Sq, Skv, Hq, Hkv, D, int(causal), scale, nsplit, bq,
         torch.cuda.current_stream(q.device).cuda_stream,

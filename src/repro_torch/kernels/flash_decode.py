@@ -59,7 +59,7 @@ def flash_decode(q, k, v, lengths, *, scale: float | None = None):
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
     out = torch.empty_like(q)
     nsplit, _ = _build.launch_plan(1, Hq // Hkv, Hkv * B)
-    err = _build.lib().repro_flash_decode(
+    err = _build.lib("attention").repro_flash_decode(
         code, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lengths.data_ptr(), B, S, Hq, Hkv, D, scale, nsplit,
         torch.cuda.current_stream(q.device).cuda_stream,

@@ -1,10 +1,11 @@
-"""Dispatch layer: the one attention entry point the models call.
+"""Dispatch layer: the attention and SSD entry points the models call.
 
-The routing rules and error checks are those of ``repro.kernels.ops.
-attention``. With ``impl="auto"`` a CUDA tensor goes to the hand-written
-kernel and a CPU tensor to its plain version (each kernel
+The routing rules and error checks are those of ``repro.kernels.ops``
+(``attention``, ``ssd``). With ``impl="auto"`` a CUDA tensor goes to the
+hand-written kernel and a CPU tensor to its plain version (each kernel
 wrapper makes that choice from the tensor's device); the ``*_ref`` impls
-force the plain version, which is the yardstick the kernels are held to.
+(and ``ssd``'s ``ref`` / ``chunked``) force a plain version, which is the
+yardstick the kernels are held to.
 """
 from __future__ import annotations
 
@@ -12,11 +13,14 @@ from typing import Dict
 
 from .flash_attention import attention_ref, flash_attention
 from .flash_decode import decode_ref, flash_decode
+from .mamba2_ssd import ssd_chunked, ssd_chunked_ref, ssd_ref
 from .paged_decode import (paged_decode, paged_decode_ref, paged_prefill,
                            paged_prefill_ref)
 
 IMPLS = ("auto", "ref", "decode", "decode_ref", "paged", "paged_ref")
-KERNELS = (flash_attention, flash_decode, paged_decode, paged_prefill)
+SSD_IMPLS = ("auto", "ref", "chunked")
+KERNELS = (flash_attention, flash_decode, paged_decode, paged_prefill,
+           ssd_chunked)
 
 
 def kernel_launches() -> Dict[str, int]:
@@ -77,3 +81,17 @@ def attention(q, k, v, *, causal=True, scale=None, impl: str = "auto",
         raise ValueError(f"impl {impl!r} needs Sq == 1 and lengths")
     fn = attention_ref if ref else flash_attention
     return fn(q, k, v, causal=causal, scale=scale)
+
+
+def ssd(x, dt, A, B, C, *, chunk: int = 64, impl: str = "auto"):
+    """impl: auto | ref | chunked. ``auto`` runs ``ssd_chunked`` (the
+    kernel for a CUDA tensor, its plain version for a CPU one); ``ref``
+    forces the sequential ``ssd_ref``; ``chunked`` forces
+    ``ssd_chunked_ref`` at chunk ``max(chunk, 128)``, as JAX's does."""
+    if impl not in SSD_IMPLS:
+        raise ValueError(f"unknown ssd impl {impl!r}; have {SSD_IMPLS}")
+    if impl == "ref":
+        return ssd_ref(x, dt, A, B, C)
+    if impl == "chunked":
+        return ssd_chunked_ref(x, dt, A, B, C, chunk=max(chunk, 128))
+    return ssd_chunked(x, dt, A, B, C, chunk=chunk)

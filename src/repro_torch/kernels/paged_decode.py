@@ -98,7 +98,7 @@ def paged_decode(q, k_pool, v_pool, block_tables, lengths, *,
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
     out = torch.empty_like(q)
     nsplit, _ = _build.launch_plan(1, Hq // Hkv, Hkv * B)
-    err = _build.lib().repro_paged_decode(
+    err = _build.lib("attention").repro_paged_decode(
         code, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         out.data_ptr(), block_tables.data_ptr(), lengths.data_ptr(), B, NB,
         Bs, block_tables.shape[1], Hq, Hkv, D, scale, nsplit,
@@ -131,7 +131,7 @@ def paged_prefill(q, k_pool, v_pool, block_tables, lengths, q_offset, *,
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
     out = torch.empty_like(q)
     nsplit, bq = _build.launch_plan(Sq, Hq // Hkv, Hkv * B)
-    err = _build.lib().repro_paged_prefill(
+    err = _build.lib("attention").repro_paged_prefill(
         code, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         out.data_ptr(), block_tables.data_ptr(), lengths.data_ptr(),
         q_offset.data_ptr(), B, Sq, NB, Bs, block_tables.shape[1], Hq, Hkv,

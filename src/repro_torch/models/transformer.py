@@ -1,13 +1,14 @@
-"""Decoder-only LM assembly, dense family:
-[rmsnorm -> GQA attn -> rmsnorm -> SwiGLU] x L.
+"""Decoder-only LM assembly for the ported families:
+  dense : [rmsnorm -> GQA attn -> rmsnorm -> SwiGLU] x L
+  ssm   : [rmsnorm -> Mamba2] x L
 
 Parameters are a dict: ``embed`` (Vp, D), ``head`` (D, Vp) unless tied,
 ``final_ln`` (D,), and ``blocks``, a list with one dict per layer (the JAX
 version stacks them on a leading L axis for ``lax.scan``; here a Python
 loop walks the list). Matrices are stored in the compute dtype
-``cfg.dtype``, norm scales in float32 (the JAX version stores float32
-masters and casts to the compute dtype on every use, which rounds to the
-same values).
+``cfg.dtype``, norm scales (and Mamba2's ``A_log``, ``D``, ``dt_bias``)
+in float32 (the JAX version stores float32 masters and casts to the
+compute dtype on every use, which rounds to the same values).
 """
 from __future__ import annotations
 
@@ -18,16 +19,20 @@ import torch
 from .attention import attn_fwd, attn_init
 from .config import ModelConfig
 from .layers import embed_init, mlp_fwd, mlp_init, resolve_device, rmsnorm
+from .mamba2 import STATE_KEYS, mamba_fwd, mamba_init
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
+FAMILIES = ("dense", "ssm")
+
+
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.n_codebooks or cfg.mrope:
+    if cfg.family not in FAMILIES or cfg.n_codebooks or cfg.mrope:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense only)")
+            f"family {cfg.family!r} is not ported yet (have {FAMILIES})")
 
 
 # ------------------------------------------------------------------ init
@@ -44,51 +49,100 @@ def init_lm(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     if not cfg.tie_embeddings:
         params["head"] = embed_init((D, Vp), generator, device).to(dt)
     zeros = lambda: torch.zeros(D, dtype=torch.float32, device=device)
-    params["blocks"] = [
-        {"ln1": zeros(),
-         "attn": attn_init(cfg, generator, device, dt),
-         "ln2": zeros(),
-         "mlp": mlp_init(D, cfg.d_ff, generator, device, dt)}
-        for _ in range(cfg.n_layers)
-    ]
+    if cfg.family == "ssm":
+        params["blocks"] = [
+            {"ln": zeros(), "mamba": mamba_init(cfg, generator, device, dt)}
+            for _ in range(cfg.n_layers)
+        ]
+    else:
+        params["blocks"] = [
+            {"ln1": zeros(),
+             "attn": attn_init(cfg, generator, device, dt),
+             "ln2": zeros(),
+             "mlp": mlp_init(D, cfg.d_ff, generator, device, dt)}
+            for _ in range(cfg.n_layers)
+        ]
     params["final_ln"] = zeros()
     return params
 
 
 # ----------------------------------------------------------------- cache
+def n_attn_caches(cfg: ModelConfig) -> int:
+    return 0 if cfg.family == "ssm" else cfg.n_layers
+
+
+def _recurrent_leaves(cfg: ModelConfig, slots: int, dtype, device):
+    """Per-slot Mamba2 state (L, slots, ...): conv states in ``dtype``
+    (they hold compute-dtype values, so this is lossless), ssm in float32
+    as JAX hard-codes."""
+    if cfg.family != "ssm":
+        return {}
+    L, k1 = cfg.n_layers, cfg.ssm_conv - 1
+    z = lambda *s, dt=dtype: torch.zeros((L, slots) + s, dtype=dt,
+                                         device=device)
+    return {"conv_x": z(k1, cfg.d_inner),
+            "conv_B": z(k1, cfg.ssm_state),
+            "conv_C": z(k1, cfg.ssm_state),
+            "ssm": z(cfg.ssm_heads, cfg.ssm_state, cfg.ssm_headdim,
+                     dt=torch.float32)}
+
+
 def make_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
                device=None) -> Dict[str, torch.Tensor]:
-    """Contiguous per-slot caches (L, batch, max_seq, Hkv, hd)."""
+    """Contiguous per-slot caches: attention k/v (L, batch, max_seq, Hkv,
+    hd) and, for the ssm family, the recurrent leaves per slot."""
     _check_family(cfg)
     device = resolve_device(device)
-    kv = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.hd)
     dtype = dtype or compute_dtype(cfg)
-    return {"k": torch.zeros(kv, dtype=dtype, device=device),
-            "v": torch.zeros(kv, dtype=dtype, device=device)}
+    cache = {}
+    if n_attn_caches(cfg):
+        kv = (n_attn_caches(cfg), batch, max_seq, cfg.n_kv_heads, cfg.hd)
+        cache["k"] = torch.zeros(kv, dtype=dtype, device=device)
+        cache["v"] = torch.zeros(kv, dtype=dtype, device=device)
+    cache.update(_recurrent_leaves(cfg, batch, dtype, device))
+    return cache
 
 
 def make_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
                      slots: int, dtype=None,
                      device=None) -> Dict[str, torch.Tensor]:
-    """Paged serving cache: per-layer pools of ``num_blocks`` blocks of
+    """Paged serving cache: per-layer k/v pools of ``num_blocks`` blocks of
     ``block_size`` tokens, indirected through per-sequence block tables.
     Each pool holds ONE extra block, index ``num_blocks``: the sink that
     dropped writes (idle slots, table entries past an allocation) go to,
     where JAX drops them. No table points at it and no kernel reads it.
-    ``slots`` is unused by the dense family (no per-slot recurrent
-    state); it is kept so the signature matches the JAX version's."""
+    Recurrent conv/ssm state is O(1) per sequence, so it stays dense per
+    decode slot (``slots`` rows, no sink)."""
     _check_family(cfg)
     device = resolve_device(device)
-    kv = (cfg.n_layers, num_blocks + 1, block_size, cfg.n_kv_heads, cfg.hd)
     dtype = dtype or compute_dtype(cfg)
-    return {"k": torch.zeros(kv, dtype=dtype, device=device),
-            "v": torch.zeros(kv, dtype=dtype, device=device)}
+    cache = {}
+    if n_attn_caches(cfg):
+        kv = (n_attn_caches(cfg), num_blocks + 1, block_size,
+              cfg.n_kv_heads, cfg.hd)
+        cache["k"] = torch.zeros(kv, dtype=dtype, device=device)
+        cache["v"] = torch.zeros(kv, dtype=dtype, device=device)
+    cache.update(_recurrent_leaves(cfg, slots, dtype, device))
+    return cache
 
 
 # -------------------------------------------------------------- forward
 def run_layers(params, cfg: ModelConfig, x, positions, cache, cache_len,
                mode, block_tables=None):
     """Apply every block; caches are per-layer views updated in place."""
+    if cfg.family == "ssm":
+        # Per-slot lengths in decode: -1 marks a slot whose state stays.
+        active = (cache_len >= 0 if mode == "decode"
+                  and torch.is_tensor(cache_len) and cache_len.dim() == 1
+                  else None)
+        for li, bp in enumerate(params["blocks"]):
+            mcache = ({k: cache[k][li] for k in STATE_KEYS}
+                      if cache else None)
+            h, _ = mamba_fwd(bp["mamba"],
+                             rmsnorm(x, bp["ln"], cfg.norm_eps), cfg,
+                             cache=mcache, mode=mode, active=active)
+            x = x + h
+        return x, cache
     for li, bp in enumerate(params["blocks"]):
         acache = ({"k": cache["k"][li], "v": cache["v"][li]}
                   if cache else None)

@@ -20,11 +20,22 @@ flat block pools (``models.make_paged_cache``) mapped per sequence by
 token budget, FIFO admission), decode through the paged kernel.
 ``prefix_cache=True`` adds the radix prefix cache and ``prefill_chunk=N``
 chunked prefill (the paged_prefill kernel attends chunk [s, e) to the pool
-window [0, e)).
+window [0, e)). Both are attention-family features: the ssm family's
+recurrent state cannot be forked or resumed mid-prompt, so they raise.
 
-Not ported yet: live migration (``migrate_out`` / ``migrate_in``), the
-cost model, SLO monitoring and SLO-aware admission, and the replica
-balancer; the options that would select them raise.
+The ssm family (mamba2) keeps its conv/ssm state per decode slot in both
+cache layouts. Every admission zeroes the slot's recurrent rows before
+its prefill (prefill reads the conv state), and, as in the JAX engine,
+the prompt's padding to the ``pad_len`` bucket runs through the
+recurrence.
+
+``GLBReplicaBalancer`` drives a fabric of engines with the GLB lifeline
+protocol, tier 1 (queued requests) only.
+
+Not ported yet: live migration (``migrate_out`` / ``migrate_in``, the
+balancer's tier 2), replica faults, the cost model and predictive
+balancing, SLO monitoring and SLO-aware admission; the options that
+would select them raise.
 """
 from __future__ import annotations
 
@@ -35,6 +46,9 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import (GLBParams, fabric_summary, lifeline_buddies,
+                              match_steals, merge_place_stats,
+                              random_candidates, terminated)
 from repro_torch.models import (decode_step, forward, make_cache,
                                 make_paged_cache, sample_tokens)
 from repro_torch.models.config import ModelConfig
@@ -44,6 +58,9 @@ from repro_torch.obs import NULL_TRACER, MetricsRegistry, now_us
 from .kvpool import KVPool
 from .radix import RadixPrefixCache
 from .scheduler import ContinuousBatchingScheduler
+
+KV_LEAVES = ("k", "v")       # attention caches; every other leaf is
+                             # recurrent per-slot state
 
 # Default KV block size of the paged pool, chosen for the H100: 16 tokens
 # of one KV head at head dim 64 in bf16 is 2 KiB, small enough that the
@@ -97,6 +114,14 @@ class Engine:
                 raise NotImplementedError(f"{name} is not ported yet")
         if slo_admission:
             raise NotImplementedError("slo_admission is not ported yet")
+        if cfg.family == "ssm" and (prefix_cache
+                                    or prefill_chunk is not None):
+            # Recurrent conv/ssm state is not block-addressable: a cached
+            # prefix (or an earlier chunk) carries hidden state the pool
+            # cannot fork.
+            raise ValueError(
+                "prefix cache / chunked prefill need stateless attention "
+                f"KV, not family={cfg.family!r}")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
@@ -161,6 +186,15 @@ class Engine:
     # ------------------------------------------------------------ helpers
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
+
+    @staticmethod
+    def _scrub(row) -> None:
+        """Zero the recurrent leaves of a prefill row, in place: the conv
+        state feeds prefill directly and must not carry the previous
+        request's inputs (attention k/v tails are masked by length)."""
+        for name, leaf in row.items():
+            if name not in KV_LEAVES:
+                leaf.zero_()
 
     def _sample(self, logits):
         return sample_tokens(logits[..., :self.cfg.vocab], self._gen,
@@ -257,9 +291,10 @@ class Engine:
                 true_len = min(len(req.prompt), self.pad_len)
                 toks = np.zeros((1, self.pad_len), np.int32)
                 toks[0, :true_len] = req.prompt[:true_len]
-                # Prefill writes the prompt's k/v straight into the slot's
-                # rows (a view of the engine cache).
+                # Prefill writes the prompt's k/v (or recurrent state)
+                # straight into the slot's rows (a view of the cache).
                 row = {n: c[:, i:i + 1] for n, c in self.cache.items()}
+                self._scrub(row)
                 logits, _, _ = forward(self.params, self.cfg,
                                        self._dev(toks), cache=row,
                                        cache_len=0, mode="prefill")
@@ -369,8 +404,9 @@ class Engine:
 
     def _admit_paged(self, slot: int, req: Request):
         """Prefill a scheduler-admitted request into ``slot``: prefill the
-        padded bucket into the reused row, then copy the prefix's blocks
-        into the pool blocks the scheduler allocated."""
+        padded bucket into the reused row, then copy the prefix's k/v
+        blocks into the pool blocks the scheduler allocated; recurrent
+        leaves are slot-dense and land at ``slot``."""
         prefix = self._prefix_tokens(req)
         true_len = len(prefix)
         bucket = min(-(-true_len // self.pad_len) * self.pad_len,
@@ -380,12 +416,16 @@ class Engine:
         t0 = now_us()
         self._span_begin("prefill", slot,
                          {"rid": req.rid, "tokens": true_len})
+        self._scrub(self._row)
         logits, _, _ = forward(self.params, self.cfg, self._dev(toks),
                                cache=self._row, cache_len=0, mode="prefill")
         n_pb = -(-true_len // self.block_size)
         ids = self._dev(np.asarray(self.pool.block_table(req.rid)[:n_pb],
                                    np.int64))
         for name, pool in self.cache.items():
+            if name not in KV_LEAVES:
+                pool[:, slot] = self._row[name][:, 0]
+                continue
             rb = self._row[name][:, 0].view(
                 pool.shape[0], self.max_blocks, self.block_size,
                 *pool.shape[3:])
@@ -443,8 +483,9 @@ class Engine:
             self.budget[slot] = 0
             self.tokens[slot, 0] = 0
         for src, dst in plan.copies:
-            for pool in self.cache.values():
-                pool[:, dst] = pool[:, src]        # COW copy, in place
+            for name in KV_LEAVES:                 # COW copy, in place
+                if name in self.cache:
+                    self.cache[name][:, dst] = self.cache[name][:, src]
         for slot, req in plan.admit:
             self._admit_paged(slot, req)
         for slot, req, start, end, last in plan.prefill:
@@ -556,3 +597,202 @@ class Engine:
         for name, v in sync.items():
             m.gauge(name).set(v)
         return m.snapshot()
+
+
+def _seeded_candidates(step: int, P: int, w: int) -> np.ndarray:
+    """Default random-round victims of superstep ``step``: drawn from a
+    generator seeded from 17 and the superstep (the JAX balancer folds the
+    superstep into ``key(17)``; numpy cannot replay that stream)."""
+    return random_candidates(np.random.default_rng([17, step]), P, w)
+
+
+class GLBReplicaBalancer:
+    """GLB over replicas: the paper's lifeline protocol applied to
+    serving, tier 1. The counterpart of ``repro.serve.engine.
+    GLBReplicaBalancer`` with queued-request stealing only.
+
+    Per balance pass the per-replica loads are the GLB size vector and
+    hungry replicas (a free slot and, for paged engines, room for a
+    bucket-sized admission, with an empty local queue) are matched to
+    victims by the deterministic lifeline matching (``core.lifeline``). A
+    matched thief steals half of the victim's queue, oldest first. The
+    load vector gathered for the matching doubles as the GLB termination
+    detector, and ``collect`` merges per-replica stats into one fabric
+    report.
+
+    ``candidates(step, P, w) -> (P, w)`` supplies the random round's
+    victims of each superstep; by default they come from a generator
+    seeded from 17 and the superstep. A parity test passes the JAX
+    reference's draws in. Tier 2 (``migrate``), replica faults, the cost
+    model and predictive balancing, and SLO monitoring are not ported yet
+    and raise."""
+
+    def __init__(self, engines: List[Engine],
+                 params: GLBParams = GLBParams(),
+                 migrate: bool = False, tracer=None, slo=None,
+                 faults=None, cost_model=None, predictive: bool = False,
+                 candidates=None):
+        for name, val in (("migrate", migrate), ("slo", slo),
+                          ("faults", faults), ("cost_model", cost_model),
+                          ("predictive", predictive)):
+            if val:
+                raise NotImplementedError(f"{name} is not ported yet")
+        self.engines = engines
+        self.params = params
+        self.candidates = candidates or _seeded_candidates
+        # Decision log: one tuple per steal, in execution order.
+        self.decisions: List[tuple] = []
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self._fabric_pid = 1 + max(
+            (e.replica_id for e in engines), default=-1
+        )
+        if self.tracer.enabled:
+            self.tracer.process_name(self._fabric_pid, "fabric balancer")
+            self.tracer.thread_name(self._fabric_pid, 0, "balance")
+        P = len(engines)
+        self._buddies = lifeline_buddies(P, params.resolve_z(P))
+        self._pending = np.zeros((P, P), bool)
+        self._step = 0
+        self._rr = 0                   # submission counter: placement must
+                                       # not depend on rid density
+        self.queue_moves = 0           # tier-1: queued requests stolen
+        self.supersteps = 0
+        self.terminated = False
+
+    @property
+    def moves(self) -> int:
+        """Requests moved between replicas (tier 1 only here)."""
+        return self.queue_moves
+
+    def submit(self, req: Request, rr: Optional[int] = None):
+        """Round-robin placement by an internal submission counter (``rid
+        % P`` skews when rids are strided); ``rr`` overrides it for
+        adversarial test placement."""
+        P = len(self.engines)
+        if rr is None:
+            i = self._rr % P
+            self._rr += 1
+        else:
+            i = rr % P
+        self.engines[i].submit(req)
+
+    @staticmethod
+    def _stealable(e: Engine) -> int:
+        """One replica's entry in the GLB size vector: its queue depth."""
+        return len(e.queue)
+
+    def balance(self) -> bool:
+        """One balancing pass. Returns True when the fabric is done: the
+        load vector gathered for the steal matching is the termination
+        detector."""
+        loads = np.asarray([e.load for e in self.engines], np.int32)
+        if self.tracer.enabled:
+            self.tracer.counter(
+                "fabric_load",
+                {f"replica{i}": int(v) for i, v in enumerate(loads)},
+                pid=self._fabric_pid,
+            )
+        if terminated(loads):
+            self.terminated = True
+            if self.tracer.enabled:
+                self.tracer.instant("terminated", pid=self._fabric_pid,
+                                    args={"superstep": self.supersteps})
+            return True
+        sizes = np.asarray([self._stealable(e) for e in self.engines],
+                           np.int32)
+        hungry = np.asarray([e.can_accept() and len(e.queue) == 0
+                             for e in self.engines])
+        P = len(self.engines)
+        cand = np.asarray(self.candidates(self._step, P, self.params.w),
+                          np.int32).reshape(P, -1)
+        m = match_steals(sizes, hungry, self._pending, cand, self._buddies,
+                         self.params)
+        self._pending = m.pending
+        for thief, victim in enumerate(m.src):
+            if victim < 0:
+                continue
+            v = self.engines[int(victim)]
+            if not v.queue:
+                continue
+            # Steal half the queue, oldest first: stolen requests keep
+            # their arrival order on the thief.
+            took = min(max(1, len(v.queue) // 2), len(v.queue))
+            for _ in range(took):
+                self.engines[thief].submit(v.queue.popleft())
+                self.queue_moves += 1
+            self.decisions.append(("q", v.replica_id,
+                                   self.engines[thief].replica_id, took))
+            if self.tracer.enabled:
+                self.tracer.instant(
+                    "steal_queued", pid=self._fabric_pid,
+                    args={"victim": v.replica_id,
+                          "thief": self.engines[thief].replica_id,
+                          "n": took},
+                )
+        self._step += 1
+        return False
+
+    def run(self, max_steps: int = 10_000) -> str:
+        """Drive the fabric to completion: balance, superstep every
+        engine, repeat until the balance pass reports termination.
+        Returns ``"terminated"`` or ``"wedged"`` (``max_steps`` exhausted
+        with work outstanding)."""
+        while max_steps > 0:
+            with self.tracer.span("superstep", pid=self._fabric_pid,
+                                  args={"n": self.supersteps}):
+                if self.balance():
+                    break
+                for e in self.engines:
+                    e.step()
+                self.supersteps += 1
+            max_steps -= 1
+        if self.terminated:
+            return "terminated"
+        if self.tracer.enabled:
+            self.tracer.instant(
+                "fabric_wedged", pid=self._fabric_pid,
+                args={"supersteps": self.supersteps,
+                      "loads": [e.load for e in self.engines]},
+            )
+        return "wedged"
+
+    def collect(self) -> dict:
+        """Fabric-level result collection: per-replica stats merged into
+        one report (total/mean/max per field) plus the balancer's own
+        counters, with the JAX balancer's keys (the unported tiers count
+        0)."""
+        merged = merge_place_stats([e.stats() for e in self.engines])
+        merged["_balancer"] = {
+            "moves": self.moves,
+            "queue_moves": self.queue_moves,
+            "migrations": 0,
+            "diffusion_moves": 0,
+            "sterile_steals": 0,
+            "supersteps": self.supersteps,
+            "replicas_dead": 0,
+            "readmitted_queued": 0,
+            "readmitted_running": 0,
+            "mig_live": 0,
+            "mig_seeded": 0,
+            "mig_recompute": 0,
+        }
+        return merged
+
+    def merged_metrics(self) -> MetricsRegistry:
+        """Fabric-level metrics registry: counters add, gauges keep the
+        high-water mark, histograms merge bucket counts (quantiles of the
+        merged distribution)."""
+        for e in self.engines:
+            e.stats()               # sync attr-backed gauges first
+        return MetricsRegistry.merged([e.metrics for e in self.engines])
+
+    def report(self) -> str:
+        """Human-readable fabric summary plus the balancer counters."""
+        lines = [fabric_summary(self.collect(), title="replica fabric",
+                                places=len(self.engines))]
+        lines.append(
+            f"  balancer: {self.moves} moves ({self.queue_moves} queued "
+            f"+ 0 live migrations: 0 live / 0 seeded / 0 recompute), "
+            f"{self.supersteps} supersteps, terminated={self.terminated}"
+        )
+        return "\n".join(lines)

@@ -17,13 +17,16 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import resolve_device
 from repro_torch.models.transformer import _check_family, compute_dtype
 
-_NORMS = ("ln1", "ln2", "final_ln")    # kept in float32, as the JAX math
+# Leaves kept in float32, as the JAX math uses them: norm scales, and
+# Mamba2's A_log, D, dt_bias (cast at use by ``mamba_fwd``).
+_F32 = ("ln1", "ln2", "final_ln", "ln", "gate_norm", "A_log", "D",
+        "dt_bias")
 
 
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device=None,
                     dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
-    """Matrices and biases go to ``dtype`` (default ``cfg.dtype``), norm
-    scales stay float32."""
+    """Matrices, biases and conv weights go to ``dtype`` (default
+    ``cfg.dtype``); the ``_F32`` leaves stay float32."""
     _check_family(cfg)
     device = resolve_device(device)
     dtype = dtype or compute_dtype(cfg)
@@ -31,7 +34,7 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device=None,
     def conv(name, a):
         t = torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
         return t.to(device=device,
-                    dtype=torch.float32 if name in _NORMS else dtype)
+                    dtype=torch.float32 if name in _F32 else dtype)
 
     def layer(sub, i):
         return {k: (layer(v, i) if isinstance(v, dict) else conv(k, v[i]))

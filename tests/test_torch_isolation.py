@@ -52,7 +52,11 @@ def _clean_env():
 def test_importing_every_module_loads_no_jax():
     mods = sorted(m.name for m in pkgutil.walk_packages([PKG],
                                                         "repro_torch."))
-    assert "repro_torch.serve.engine" in mods and len(mods) > 15
+    for m in ("repro_torch.serve.engine", "repro_torch.models.mamba2",
+              "repro_torch.kernels.mamba2_ssd", "repro_torch.core.lifeline",
+              "repro_torch.core.stats", "repro_torch.configs.mamba2_130m"):
+        assert m in mods, m
+    assert len(mods) > 20
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {os.path.abspath(SRC)!r})\n"
@@ -92,16 +96,23 @@ def test_chip_smoke_fails_without_card_or_alone(tmp_path):
 def test_cuda_requested_without_cuda_raises(monkeypatch):
     from repro_torch.configs import ARCHS
     from repro_torch.models import init_lm, make_cache
-    from repro_torch.serve import Engine
+    from repro_torch.serve import Engine, GLBReplicaBalancer
     from repro_torch.weights import params_from_jax
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = ARCHS["tinyllama-1.1b"].smoke()
     params = init_lm(cfg, device="cpu")
+    scfg = ARCHS["mamba2-130m"].smoke()
+    sparams = init_lm(scfg, device="cpu")
     for call in (lambda: Engine(cfg, params),              # default: cuda
                  lambda: Engine(cfg, params, device="cuda"),
                  lambda: init_lm(cfg, device="cuda"),
                  lambda: make_cache(cfg, 1, 8, device="cuda"),
-                 lambda: params_from_jax({}, cfg, device="cuda")):
+                 lambda: params_from_jax({}, cfg, device="cuda"),
+                 lambda: Engine(scfg, sparams),
+                 lambda: GLBReplicaBalancer([Engine(scfg, sparams)
+                                             for _ in range(2)]),
+                 lambda: init_lm(scfg),
+                 lambda: make_cache(scfg, 1, 8)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

@@ -1,8 +1,10 @@
-"""The port's dense LM against the JAX package, with the JAX weights carried
-over by ``weights.params_from_jax``.
+"""The port's LM against the JAX package, with the JAX weights carried over
+by ``weights.params_from_jax``.
 
 Configs: ``tinyllama-1.1b.smoke()`` and ``qwen2-1.5b.smoke()`` (QKV bias),
-float32. The biases and norm scales, zero at init, are set to random
+and ``mamba2-130m.smoke()`` (ssm family: one Mamba2 block in each mode,
+the whole model, the per-slot recurrent caches), float32. The biases,
+norm scales and Mamba2's scalars, zero or one at init, are set to random
 values so that every parameter matters. Logits of ``forward`` (train and
 prefill), of ``decode_step`` on the contiguous and the paged caches, and of
 a chunked prefill against the pool are compared, and so are the caches
@@ -28,6 +30,7 @@ from repro_torch.models import decode_step as t_decode_step
 from repro_torch.models import forward as t_forward
 from repro_torch.models import init_lm as t_init_lm
 from repro_torch.models import make_cache as t_make_cache
+from repro_torch.models import ModelConfig
 from repro_torch.models import make_paged_cache as t_make_paged_cache
 from repro_torch.weights import params_from_jax
 
@@ -168,3 +171,124 @@ def test_init_lm_shapes_and_distributions():
     std = 1 / np.sqrt(cfg.d_model)                 # truncated at +-2 std
     assert float(wq.abs().max()) <= 2 * std
     assert abs(float(wq.std()) / std - 0.88) < 0.05   # trunc-normal std
+
+
+# ------------------------------------------------------------ ssm family
+J = jnp.asarray
+
+
+def setup_ssm():
+    """mamba2-130m.smoke() with every zero/one-initialised leaf (norm
+    scales, dt_bias, A_log, D) set to random values."""
+    if "ssm" not in _SETUP:
+        cfg = ARCHS["mamba2-130m"].smoke()
+        rng = np.random.default_rng(5)
+        tree = jax.tree.map(np.array, init_lm(jax.random.key(1), cfg))
+        m = tree["blocks"]["mamba"]
+        for blk, name, mean in ((tree["blocks"], "ln", 0.0),
+                                (tree, "final_ln", 0.0),
+                                (m, "gate_norm", 0.0), (m, "dt_bias", 0.0),
+                                (m, "A_log", 0.0), (m, "D", 1.0)):
+            blk[name] = rng.normal(mean, 0.2, blk[name].shape).astype(
+                np.float32)
+        tcfg = T_ARCHS["mamba2-130m"].smoke()
+        assert dataclasses.asdict(tcfg) == dataclasses.asdict(cfg)
+        _SETUP["ssm"] = (cfg, tcfg, jax.tree.map(jnp.asarray, tree),
+                         params_from_jax(tree, tcfg, device="cpu"))
+    return _SETUP["ssm"]
+
+
+def _ssm_state(cfg, rng, B):
+    """A random per-slot recurrent cache (one layer's leaves)."""
+    jc = make_cache(cfg, B, 8, dtype=jnp.float32)
+    return {k: rng.normal(0, 1, a.shape[1:]).astype(np.float32)
+            for k, a in jc.items()}
+
+
+@pytest.mark.parametrize("mode", ["train", "prefill", "decode"])
+def test_mamba_fwd_matches_jax(mode):
+    """One Mamba2 block in each mode: output, and the new conv/ssm states
+    (prefill and decode start from a random carried state; in decode,
+    slot 1 is inactive and must keep its state bit for bit)."""
+    from repro.models.mamba2 import mamba_fwd as j_mamba
+    from repro_torch.models.mamba2 import mamba_fwd as t_mamba
+
+    cfg, tcfg, jp, tp = setup_ssm()
+    rng = np.random.default_rng(6)
+    B, S = 3, (1 if mode == "decode" else 12)
+    x = rng.normal(0, 1, (B, S, cfg.d_model)).astype(np.float32)
+    jpar = jax.tree.map(lambda a: a[0], jp["blocks"]["mamba"])
+    tpar = tp["blocks"][0]["mamba"]
+    state = _ssm_state(cfg, rng, B) if mode != "train" else None
+    active = np.asarray([True, False, True]) if mode == "decode" else None
+    want, jnew = j_mamba(jpar, jnp.asarray(x), cfg,
+                         cache=state and jax.tree.map(jnp.asarray, state),
+                         mode=mode,
+                         active=None if active is None else J(active))
+    tstate = state and {k: torch.from_numpy(v.copy())
+                        for k, v in state.items()}
+    got, tnew = t_mamba(tpar, torch.from_numpy(x), tcfg, cache=tstate,
+                        mode=mode, active=None if active is None
+                        else torch.from_numpy(active))
+    _close(got if active is None else got[[0, 2]],
+           want if active is None else np.asarray(want)[[0, 2]])
+    if state is None:
+        return
+    assert tnew is tstate                       # updated in place
+    for k in state:
+        _close(tnew[k], jnew[k])
+        if active is not None:
+            assert np.array_equal(tnew[k][1].numpy(), state[k][1])
+
+
+def test_ssm_forward_and_decode_match_jax():
+    """The whole mamba2 model: train and prefill logits, then one decode
+    step against the prefilled cache with an idle slot (-1)."""
+    cfg, tcfg, jp, tp = setup_ssm()
+    toks = _tokens(np.random.default_rng(7), cfg, 3, 16)
+    want, _, _ = forward(jp, cfg, tokens=J(toks), mode="train")
+    got, _, _ = t_forward(tp, tcfg, torch.from_numpy(toks))
+    _close(got, want)
+    jc = make_cache(cfg, 3, 32, dtype=jnp.float32)
+    want, jc, _ = forward(jp, cfg, tokens=J(toks), cache=jc,
+                          cache_len=jnp.int32(0), mode="prefill")
+    tc = t_make_cache(tcfg, 3, 32, device="cpu")
+    assert set(tc) == set(jc) == {"conv_x", "conv_B", "conv_C", "ssm"}
+    got, tc, _ = t_forward(tp, tcfg, torch.from_numpy(toks), cache=tc,
+                           cache_len=0, mode="prefill")
+    _close(got, want)
+    for k in jc:
+        _close(tc[k], jc[k])
+    lens = np.asarray([16, -1, 16], np.int32)
+    tok = _tokens(np.random.default_rng(8), cfg, 3, 1)
+    before = {k: v.clone() for k, v in tc.items()}
+    want, jc = decode_step(jp, cfg, J(tok), jc, J(lens))
+    got, tc = t_decode_step(tp, tcfg, torch.from_numpy(tok), tc,
+                            torch.from_numpy(lens))
+    _close(got[[0, 2]], np.asarray(want)[[0, 2]])
+    for k in jc:
+        _close(tc[k], jc[k])
+        assert torch.equal(tc[k][:, 1], before[k][:, 1])   # idle slot
+
+
+def test_ssm_caches_and_init_shapes():
+    cfg, tcfg, _, tp = setup_ssm()
+    p = t_init_lm(tcfg, torch.Generator().manual_seed(0), device="cpu")
+    for a, b in zip(jax.tree.leaves(p), jax.tree.leaves(tp)):
+        assert a.shape == b.shape and a.dtype == b.dtype
+    f32 = ("A_log", "D", "dt_bias", "gate_norm")
+    for name in f32:
+        assert tp["blocks"][0]["mamba"][name].dtype == torch.float32
+    assert tp["blocks"][0]["ln"].dtype == torch.float32
+    bf = dataclasses.replace(tcfg, dtype="bfloat16")
+    pc = t_make_paged_cache(bf, 6, 8, 3, device="cpu")
+    jpc = make_paged_cache(cfg, 6, 8, 3)
+    assert set(pc) == set(jpc)                 # no k/v pools, no sink
+    for k, a in jpc.items():
+        assert tuple(pc[k].shape) == a.shape
+        assert pc[k].dtype == (torch.float32 if k == "ssm"
+                               else torch.bfloat16)
+    hybrid = ModelConfig(name="h", family="hybrid", n_layers=2,
+                         d_model=64, attn_every=2)
+    with pytest.raises(NotImplementedError):        # a later slice
+        t_make_cache(hybrid, 1, 8, device="cpu")
