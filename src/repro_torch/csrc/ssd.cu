@@ -55,6 +55,7 @@ constexpr int kPT = 16;       // columns of P per block
 constexpr int kMaxN = 256;    // largest state size the register tiles cover
 constexpr int kRows = kMaxL / (kThreads / kMaxL);   // C B^T rows a thread
 constexpr int kNTile = kMaxN / (kThreads / 4);      // state rows a thread
+constexpr int kMaxDevices = 64;   // devices whose smem attribute is cached
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
@@ -298,15 +299,20 @@ cudaError_t launch(const void* x, const void* dt, const void* A,
                    const void* B, const void* C, void* y, void* h, int Bt,
                    int T_len, int H, int P, int N, int L, cudaStream_t st) {
   const size_t bytes = sizeof(float) * Layout(L, N).total;
-  // Above 48 KB a block's dynamic shared memory must be allowed first. Done
-  // once per size (not a stream operation, and kept out of graph capture).
-  static size_t allowed = 0;
-  if (bytes > allowed) {
-    const cudaError_t err = cudaFuncSetAttribute(
+  // Above 48 KB a block's dynamic shared memory must be allowed first. The
+  // attribute belongs to the current device, so it is set once per device
+  // and size (not a stream operation, and kept out of graph capture).
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  static size_t allowed[kMaxDevices] = {};
+  size_t* seen = dev < kMaxDevices ? &allowed[dev] : nullptr;
+  if (seen == nullptr || bytes > *seen) {
+    err = cudaFuncSetAttribute(
         ssd_chunked_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(bytes));
     if (err != cudaSuccess) return err;
-    allowed = bytes;
+    if (seen != nullptr) *seen = bytes;
   }
   const dim3 grid((P + kPT - 1) / kPT, H, Bt);
   ssd_chunked_kernel<T><<<grid, kThreads, bytes, st>>>(
