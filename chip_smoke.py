@@ -5,8 +5,9 @@
 
 Phases, in order; any failure exits non-zero:
   1. device  — requires CUDA; prints the card's name and power limit.
-  2. build   — compiles the CUDA kernels (csrc/attention.cu, csrc/ssd.cu)
-               with nvcc, one process per source, in parallel.
+  2. build   — compiles the CUDA kernels (csrc/attention.cu, csrc/ssd.cu,
+               csrc/uts.cu) with nvcc, one process per source, in
+               parallel.
   3. kernels — each of the four attention kernels against its plain
                PyTorch version at the serving path's full-width shapes
                (tinyllama-1.1b: 32 query heads, 4 KV heads, head dim 64)
@@ -33,7 +34,20 @@ Phases, in order; any failure exits non-zero:
                The fabric must terminate with every request done, and
                ssd_chunked must have been launched. Then one admission's
                prefill under torch.profiler: ssd_chunked's share of it.
-  6. parity  — kernel path vs plain path end to end: identical greedy
+  6. glb     — the GLB task executor. uts_expand against uts_expand_ref,
+               bit for bit, at the UTS path's shape (1024 nodes x 256
+               lanes) and edge shapes, timed like the kernels above. Then
+               the paper's UTS (geometric tree, b0 4, r 19; depth 12, one
+               below the paper's smallest, so that the run stays near a
+               minute) on 1024 places with n 256, w 2, steal_k 64: the
+               count must equal the breadth-first count of the same tree
+               (itself held to the sequential oracle at depth 9) and
+               uts_expand must have been launched; a few of its
+               supersteps run under torch.profiler. Then fib(24) and BC on an R-MAT graph of
+               scale 10 on 64 places against their oracles, and UTS at
+               depth 9 on 64 places through the kernel and through the
+               plain expansion, which must agree in every number.
+  7. parity  — kernel path vs plain path end to end: identical greedy
                tokens on the f32 smoke configs (tinyllama in every engine
                mode, the mamba2 fabric), and close last-position prefill
                logits at full width (both models).
@@ -53,9 +67,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, and dense
-# FLOP/s by type (bf16 on the tensor cores, f32 outside them).
+# FLOP/s by type (bf16 on the tensor cores, f32 outside them). The sheet
+# gives no int32 rate; int32 counts one operation per CUDA-core lane per
+# clock, 132 SMs x 128 lanes x 1.98 GHz: the rate behind the f32 figure,
+# which counts an FMA as two. No int32 instruction issues faster, so the
+# bound it gives is a least time.
 PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int32": 33.5e12}
 # Kernel vs plain version on the same inputs: bf16 outputs are rounded
 # once from f32 accumulators in both, so they differ by at most ~1 bf16
 # ulp of |o| <= 2 (2^-7); f32 differs only in summation order.
@@ -72,9 +90,11 @@ REPLACES = {
     "paged_decode": "src/repro/kernels/paged_decode.py:101",
     "paged_prefill": "src/repro/kernels/paged_decode.py:215",
     "ssd_chunked": "src/repro/kernels/mamba2_ssd.py:80",
+    "uts_expand": "src/repro/kernels/uts_expand.py:54",
 }
 SOURCES = {name: "src/repro_torch/csrc/attention.cu" for name in REPLACES}
 SOURCES["ssd_chunked"] = "src/repro_torch/csrc/ssd.cu"
+SOURCES["uts_expand"] = "src/repro_torch/csrc/uts.cu"
 ATTENTION = ("flash_attention", "flash_decode", "paged_decode",
              "paged_prefill")
 
@@ -753,6 +773,254 @@ def phase_prefill_profile(params):
 
 
 # ------------------------------------------------------------ phase 6
+# The UTS path: P = 1024 places, each loop iteration expands one node per
+# place at width n = 256 (gen_width 0).
+UTS_MAIN = dict(M=1024, W=256)
+# The paper's geometric tree (b0 4, r 19) cut from its smallest depth, 13
+# (125,350,485 nodes, 207 s on one H100), to 12 (31,360,287 nodes).
+UTS_TREE = dict(b0=4.0, depth=12, seed=19)
+UTS_PARAMS = dict(n=256, w=2, steal_k=64)    # benchmarks/bench_uts.py uts_g
+UTS_P = 1024
+# uts_expand's int32 operations per lane: three fmix32 of 8 (3 shifts, 3
+# xors, 2 multiplies), 7 to mix the index in, 32 compares and 32 adds.
+UTS_OPS_PER_LANE = 95
+PROFILE_STEPS = (200, 203)    # supersteps of the UTS run under the profiler
+
+
+def _uts_inputs(rng, M, base_lo, base_hi):
+    """Descriptors with the high bit set (uint32 bits in int32), bases in
+    [base_lo, base_hi), the thresholds of the b0 = 4 tree."""
+    import numpy as np
+    import torch
+
+    from repro_torch.problems.uts import geom_thresholds
+
+    bits = lambda: torch.from_numpy(
+        (rng.integers(0, 2 ** 31, M, dtype=np.int64) | 2 ** 31)
+        .astype(np.uint32).view(np.int32)).to(DEVICE)
+    base = torch.from_numpy(
+        rng.integers(base_lo, base_hi, M).astype(np.int32)).to(DEVICE)
+    thr = torch.from_numpy(geom_thresholds(4.0).view(np.int32)).to(DEVICE)
+    return bits(), bits(), base, thr
+
+
+def kernel_uts(rng):
+    """uts_expand against uts_expand_ref, bit for bit, at the main shape
+    and the edge cases; times the main shape. Returns its row."""
+    import torch
+
+    from repro_torch.kernels.uts_expand import uts_expand, uts_expand_ref
+
+    M, W = UTS_MAIN["M"], UTS_MAIN["W"]
+    cases = (("main", M, W, 0, 32), ("M=1", 1, 8, 0, 32),
+             ("ragged-M", 1000, 64, 0, 32),
+             ("base~2^31", 77, 256, 2 ** 31 - 288, 2 ** 31 - 256))
+    row = None
+    for label, m, w, lo, hi in cases:
+        args = _uts_inputs(rng, m, lo, hi)
+        kern = lambda a=args, w=w: uts_expand(*a, width=w)
+        plain = lambda a=args, w=w: uts_expand_ref(*a, w)
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        same = all(torch.equal(g, x) for g, x in zip(got, want))
+        log(f"[glb] uts_expand      {label:10s} M={m} W={w}: "
+            f"{'bit-exact' if same else 'MISMATCH'} vs uts_expand_ref")
+        if not same:
+            fail(f"uts_expand/{label} differs from uts_expand_ref")
+        if label != "main":
+            continue
+        nbytes = sum(t.numel() * t.element_size() for t in (*args, *got))
+        ops = UTS_OPS_PER_LANE * m * w
+        bound_b = nbytes / PEAK_BYTES * 1e3
+        bound_o = ops / PEAK_FLOPS["int32"] * 1e3
+        ms_k, eager = time_ms(kern)
+        ms_p, plain_eager = time_ms(plain)
+        row = dict(
+            name="uts_expand", route="cuda", source=SOURCES["uts_expand"],
+            replaces=REPLACES["uts_expand"], launches=0, max_abs_err=max(
+                (g.long() - x.long()).abs().max().item()
+                for g, x in zip(got, want)),
+            ms=ms_k, plain_ms=ms_p, bound_ms=max(bound_b, bound_o),
+            bound_by="bytes" if bound_b >= bound_o else "operations",
+            library_ms=None)
+        log(f"[glb] uts_expand      kernel_ms {ms_k:.4f} plain_ms {ms_p:.4f} "
+            f"library_ms none (no PyTorch call computes it) bound_ms "
+            f"{row['bound_ms']:.5f} ({row['bound_by']}: {nbytes} B at "
+            f"{PEAK_BYTES:g} B/s = {bound_b:.5f} ms, {ops} int32 ops "
+            f"({UTS_OPS_PER_LANE} a lane) at {PEAK_FLOPS['int32']:g}/s = "
+            f"{bound_o:.5f} ms); issued eagerly: kernel {eager:.4f} plain "
+            f"{plain_eager:.4f} ms")
+    return row
+
+
+class _ProfileWindow:
+    """A tracer for run_sim that records nothing but starts torch.profiler
+    at the first superstep of ``steps`` and stops it after the last, to
+    read the device's busy share over those supersteps."""
+
+    enabled = True
+
+    def __init__(self, steps):
+        from torch.profiler import ProfilerActivity, profile
+
+        self.first, self.last = steps
+        self.prof = profile(activities=[ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA])
+        self.wall_ms = 0.0
+        self._t0 = None
+
+    def process_name(self, *a, **k):
+        pass
+
+    def thread_name(self, *a, **k):
+        pass
+
+    def instant(self, *a, **k):
+        pass
+
+    def counter(self, *a, **k):
+        pass
+
+    def span(self, name, pid=0, args=None):
+        import contextlib
+
+        import torch
+
+        step = args["n"]
+
+        @contextlib.contextmanager
+        def window():
+            if step == self.first:
+                torch.cuda.synchronize()
+                self.prof.start()
+                self._t0 = time.perf_counter()
+            yield
+            if step == self.last:
+                torch.cuda.synchronize()
+                self.wall_ms = (time.perf_counter() - self._t0) * 1e3
+                self.prof.stop()
+        return window()
+
+
+def phase_glb():
+    """The GLB task executor on the card: uts_expand, then UTS at the
+    paper's size, fib, BC, and UTS through the kernel vs the plain
+    expansion. Returns (uts_expand's row, its launches in the UTS run)."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+
+    from repro_torch.core import GLB, GLBParams
+    from repro_torch.kernels import ops
+    from repro_torch.problems import bc, fib, rmat, uts
+
+    row = kernel_uts(np.random.default_rng(7))
+
+    # UTS at the paper's size. The sequential oracle is too slow at depth
+    # 12, so the expected count is the breadth-first count of the same
+    # tree, itself held to the oracle at depth 9 first.
+    t0 = time.time()
+    small = uts.uts_count_bfs(**dict(UTS_TREE, depth=9))
+    if small != uts.uts_oracle(**dict(UTS_TREE, depth=9)):
+        fail(f"uts_count_bfs disagrees with uts_oracle at depth 9: {small}")
+    want = uts.uts_count_bfs(**UTS_TREE)
+    log(f"[glb] UTS {UTS_TREE}: {want} nodes by the breadth-first count "
+        f"(= uts_oracle at depth 9: {small}), {time.time() - t0:.1f} s")
+    glb = GLB(uts.uts_problem(**UTS_TREE), GLBParams(**UTS_PARAMS),
+              P=UTS_P, device=DEVICE)
+    window = _ProfileWindow(PROFILE_STEPS)
+    torch.cuda.synchronize()
+    ops.reset_launches()                    # counts of this run only
+    t0 = time.time()
+    got = int(glb.run(seed=0, tracer=window))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = ops.kernel_launches()["uts_expand"]
+    S = glb.supersteps
+    log(f"[glb] UTS on {UTS_P} places {UTS_PARAMS}: {got} nodes in "
+        f"{wall:.2f} s = {got / wall:.0f} nodes/s; {S} supersteps; "
+        f"superstep efficiency nodes / (supersteps x P x n) = "
+        f"{got / (S * UTS_P * UTS_PARAMS['n']):.4f}; uts_expand launched "
+        f"{launches} times ({launches / S:.1f} per superstep)")
+    host = glb.last_run.host_ms
+    log("[glb] host ms per superstep: " + ", ".join(
+        f"{k} {v / S:.2f}" for k, v in host.items())
+        + f"; the rest {(wall * 1e3 - sum(host.values())) / S:.2f}")
+    if got != want:
+        fail(f"UTS counted {got} nodes, want {want}")
+    if launches <= 0:
+        fail("uts_expand was never launched on the UTS run")
+    busy, records, kern = 0.0, 0, 0.0
+    for e in window.prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        ms = e.time_range.elapsed_us() / 1e3
+        busy += ms
+        records += 1
+        if "uts_expand_kernel" in e.name:
+            kern += ms
+    n_prof = PROFILE_STEPS[1] - PROFILE_STEPS[0] + 1
+    if records == 0:
+        fail("UTS profile: torch.profiler recorded no kernel")
+    log(f"[glb] supersteps {PROFILE_STEPS[0]}-{PROFILE_STEPS[1]} under "
+        f"torch.profiler: {window.wall_ms / n_prof:.2f} ms per superstep on "
+        f"the host clock, device busy {busy / n_prof:.3f} ms "
+        f"({100 * busy / window.wall_ms:.1f}%) in {records / n_prof:.0f} "
+        f"records per superstep; uts_expand_kernel {kern / n_prof:.3f} ms "
+        f"per superstep")
+
+    # fib(24) through the default array bag, on 64 places.
+    glb = GLB(fib.fib_problem(24), GLBParams(n=16, steal_k=16), P=64,
+              device=DEVICE)
+    t0 = time.time()
+    got = int(glb.run(seed=0))
+    log(f"[glb] fib(24) on 64 places: {got} (oracle {fib.fib_oracle(24)}) "
+        f"in {glb.supersteps} supersteps, {time.time() - t0:.2f} s")
+    if got != fib.fib_oracle(24):
+        fail(f"fib(24) = {got}, want {fib.fib_oracle(24)}")
+
+    # BC on an R-MAT graph of scale 10 (the exact oracle is O(N E) Python).
+    adj, n = rmat.rmat_graph(scale=10, seed=7)
+    t0 = time.time()
+    oracle = rmat.brandes_bc_oracle(adj)
+    t_oracle = time.time() - t0
+    glb = GLB(bc.bc_problem(adj), GLBParams(n=8, steal_k=8), P=64,
+              device=DEVICE)
+    t0 = time.time()
+    got = glb.run(seed=0)
+    wall = time.time() - t0
+    ok = np.allclose(got, oracle, rtol=1e-4, atol=1e-3)
+    rel = float(np.max(np.abs(got - oracle) / np.maximum(np.abs(oracle),
+                                                         1e-3)))
+    log(f"[glb] BC R-MAT scale 10 ({n} vertices, {int(adj.sum())} edges) "
+        f"on 64 places: {glb.supersteps} supersteps, {wall:.2f} s; max "
+        f"relative error vs brandes_bc_oracle {rel:.3e} (rtol 1e-4, atol "
+        f"1e-3) {'ok' if ok else 'MISMATCH'}; oracle {t_oracle:.1f} s")
+    if not ok or not np.isfinite(got).all():
+        fail("BC disagrees with the Brandes oracle")
+
+    # The same UTS run through the kernel and through the plain expansion.
+    runs = []
+    for impl in ("auto", "ref"):
+        prob = uts.uts_problem(**dict(UTS_TREE, depth=9), impl=impl)
+        ops.reset_launches()
+        glb = GLB(prob, GLBParams(**UTS_PARAMS), P=64, device=DEVICE)
+        t0 = time.time()
+        res = int(glb.run(seed=0))
+        runs.append((res, glb.supersteps,
+                     {k: v.tolist() for k, v in glb.stats.items()}))
+        log(f"[glb] UTS depth 9 on 64 places, impl {impl}: {res} nodes, "
+            f"{glb.supersteps} supersteps, {time.time() - t0:.2f} s, "
+            f"uts_expand launches {ops.kernel_launches()['uts_expand']}")
+    same = runs[0] == runs[1]
+    log(f"[glb] kernel vs plain expansion: result, supersteps and all "
+        f"{len(runs[0][2])} counters {'identical' if same else 'DIFFER'}")
+    if not same or runs[0][0] != small:
+        fail("UTS through the kernel and the plain expansion differ")
+    return row, launches
+
+
+# ------------------------------------------------------------ phase 7
 def phase_parity(params_full, mamba_full):
     import dataclasses
 
@@ -878,6 +1146,7 @@ def main() -> int:
     phase_profile(params)
     mamba, ssd_launches = phase_fabric()
     phase_prefill_profile(mamba)
+    rows["uts_expand"], uts_launches = phase_glb()
     phase_parity(params, mamba)
     all_steps = sum(steps.values())
     for name in ATTENTION:
@@ -888,6 +1157,9 @@ def main() -> int:
     rows["ssd_chunked"]["launches"] = ssd_launches
     log(f"[summary] ssd_chunked: {ssd_launches} launches in the "
         "mamba2-130m fabric run")
+    rows["uts_expand"]["launches"] = uts_launches
+    log(f"[summary] uts_expand: {uts_launches} launches in the UTS run on "
+        f"{UTS_P} places")
     log(f"[summary] card: {smi}")
     print(json.dumps({"kernels": [rows[n] for n in REPLACES]}))
     print(json.dumps({"ok": True, "device": {

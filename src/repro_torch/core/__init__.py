@@ -1,18 +1,33 @@
-"""repro_torch.core — the paper's lifeline-based global load balancing,
-on the host in numpy (P is the number of serving replicas):
+"""repro_torch.core — the paper's contribution: lifeline-based global load
+balancing. The counterpart of ``repro.core`` (without its shard_map
+executor).
 
-  params.py   — GLBParams (the paper's w / z / n tunables + packet caps)
-  lifeline.py — lifeline topology + the deterministic steal matching
-  stats.py    — result collection: merged per-place stats
+Layout:
+  params.py    — GLBParams (the paper's w / z / n tunables + packet caps)
+  taskbag.py   — array-backed TaskBag for P places at once
+  problem.py   — the TaskQueue/TaskBag user contract, batched over places
+  lifeline.py  — lifeline topology + the deterministic steal matching
+                 (numpy, on the host)
+  scheduler.py — superstep loop over P simulated places of one device
+  stats.py     — the paper's per-worker logging counters, merged reports
+  api.py       — GLB facade (paper's ``GLB.run``)
+  autotune.py  — (w, z, n) probe-run auto-tuning
 """
+from .api import GLB
 from .lifeline import (MatchResult, diffusion_pairs, lifeline_buddies,
                        lifeline_mask, match_steals, random_candidates,
                        rewire_lifelines, terminated)
 from .params import GLBParams
+from .problem import GLBProblem
+from .scheduler import GLBRun, run_sim
 from .stats import fabric_summary, merge_place_stats
 
 __all__ = [
+    "GLB",
     "GLBParams",
+    "GLBProblem",
+    "GLBRun",
+    "run_sim",
     "MatchResult",
     "diffusion_pairs",
     "lifeline_buddies",

@@ -161,20 +161,24 @@ def match_steals(
         dst[v] = t
         via[t] = via_lifeline
 
+    # Each pass visits the thieves in place order. Only a visit to t can
+    # match t, so the thieves still unmatched when a pass starts are the
+    # only ones it can change, and it visits just those (the same order
+    # and claims as a visit to every place).
     # pass 1: serve remembered lifeline requests (oldest edge = lowest v)
-    for t in range(P):
+    for t in np.flatnonzero(~matched & pending.any(axis=1)):
         row = pending[t] & ~claimed
         v = int(np.argmax(row)) if row.any() else P
         claim(t, v, bool(row.any()), True)
     # pass 2: random round — w victims per thief (never itself)
     cand = np.asarray(cand)
     if P > 1 and cand.shape[1] > 0:
-        for t in range(P):
+        for t in np.flatnonzero(~matched):
             for i in range(cand.shape[1]):
                 v = int(cand[t, i])
                 claim(t, v, not claimed[v], False)
     # pass 3: lifeline round — buddies in dimension order
-    for t in range(P):
+    for t in np.flatnonzero(~matched):
         for i in range(z):
             v = int(buddies[t, i])
             claim(t, v, not claimed[v], True)

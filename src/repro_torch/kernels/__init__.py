@@ -1,2 +1,3 @@
-"""Hand-written CUDA attention kernels (``csrc/attention.cu``) with their
-plain PyTorch versions; ``ops.attention`` routes between them."""
+"""Hand-written CUDA kernels (``csrc/attention.cu``, ``csrc/ssd.cu``,
+``csrc/uts.cu``) with their plain PyTorch versions; ``ops`` routes
+between them."""

@@ -1,7 +1,7 @@
 """Build and load the CUDA kernels of ``csrc/*.cu``.
 
-Each source (``attention.cu``, ``ssd.cu``) is compiled by ``nvcc`` for
-``sm_90a`` into a shared library of its own with a plain C interface (no
+Each source (``attention.cu``, ``ssd.cu``, ``uts.cu``) is compiled by
+``nvcc`` for ``sm_90a`` into a shared library of its own with a plain C interface (no
 PyTorch headers, so it builds in seconds) and loaded with ctypes. The
 builds land in ``build/repro_torch/`` at the root of the checkout, each
 named by a hash of its source and the flags, so an edited source rebuilds
@@ -23,8 +23,8 @@ from typing import Dict
 import torch
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = {name: _PKG / "csrc" / f"{name}.cu" for name in ("attention",
-                                                           "ssd")}
+SOURCES = {name: _PKG / "csrc" / f"{name}.cu"
+           for name in ("attention", "ssd", "uts")}
 BUILD_DIR = _PKG.parent.parent / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -55,6 +55,10 @@ SIGNATURES = {
         # dtype, x, dt, A, B, C, y, h, Bt, T, H, P, N, L, stream
         "repro_ssd_chunked": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                               _I, _I, _I, _P],
+    },
+    "uts": {
+        # d0, d1, base, thresholds, cd0, cd1, m, M, W, stream
+        "repro_uts_expand": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     },
 }
 

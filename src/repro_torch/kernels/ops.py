@@ -1,11 +1,13 @@
-"""Dispatch layer: the attention and SSD entry points the models call.
+"""Dispatch layer: the attention and SSD entry points the models call, and
+the UTS node expansion the task executor's UTS problem calls.
 
 The routing rules and error checks are those of ``repro.kernels.ops``
-(``attention``, ``ssd``). With ``impl="auto"`` a CUDA tensor goes to the
-hand-written kernel and a CPU tensor to its plain version (each kernel
-wrapper makes that choice from the tensor's device); the ``*_ref`` impls
-(and ``ssd``'s ``ref`` / ``chunked``) force a plain version, which is the
-yardstick the kernels are held to.
+(``attention``, ``ssd``, ``expand_uts``). With ``impl="auto"`` a CUDA
+tensor goes to the hand-written kernel and a CPU tensor to its plain
+version (each kernel wrapper makes that choice from the tensor's device);
+the ``*_ref`` impls (and ``ssd``'s ``ref`` / ``chunked``, ``expand_uts``'s
+``ref``) force a plain version, which is the yardstick the kernels are
+held to.
 """
 from __future__ import annotations
 
@@ -16,11 +18,13 @@ from .flash_decode import decode_ref, flash_decode
 from .mamba2_ssd import ssd_chunked, ssd_chunked_ref, ssd_ref
 from .paged_decode import (paged_decode, paged_decode_ref, paged_prefill,
                            paged_prefill_ref)
+from .uts_expand import uts_expand, uts_expand_ref
 
 IMPLS = ("auto", "ref", "decode", "decode_ref", "paged", "paged_ref")
 SSD_IMPLS = ("auto", "ref", "chunked")
+UTS_IMPLS = ("auto", "ref")
 KERNELS = (flash_attention, flash_decode, paged_decode, paged_prefill,
-           ssd_chunked)
+           ssd_chunked, uts_expand)
 
 
 def kernel_launches() -> Dict[str, int]:
@@ -95,3 +99,15 @@ def ssd(x, dt, A, B, C, *, chunk: int = 64, impl: str = "auto"):
     if impl == "chunked":
         return ssd_chunked_ref(x, dt, A, B, C, chunk=max(chunk, 128))
     return ssd_chunked(x, dt, A, B, C, chunk=chunk)
+
+
+def expand_uts(d0, d1, base, thresholds, *, width: int = 64,
+               impl: str = "auto"):
+    """impl: auto | ref. ``auto`` runs ``uts_expand`` (the kernel for a
+    CUDA tensor, its plain version for a CPU one); ``ref`` forces
+    ``uts_expand_ref``."""
+    if impl not in UTS_IMPLS:
+        raise ValueError(f"unknown uts impl {impl!r}; have {UTS_IMPLS}")
+    if impl == "ref":
+        return uts_expand_ref(d0, d1, base, thresholds, width)
+    return uts_expand(d0, d1, base, thresholds, width=width)

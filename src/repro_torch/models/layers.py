@@ -7,18 +7,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: ``cuda`` unless the caller asks
-    otherwise. Asking for CUDA on a machine without it raises; nothing
-    falls back to the CPU."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA was requested but no CUDA device is available; pass "
-            "device='cpu' to run on the CPU"
-        )
-    return dev
+from ..device import resolve_device  # noqa: F401  (re-exported)
 
 
 def dense_init(shape, generator, device, in_axis: int = 0):

@@ -14,6 +14,8 @@ in another summation order), element by element:
 float32 summation order; rel is 0 for float32 outputs and 2^-6 for
 bfloat16 y, two bf16 ulps, since both sides round once from float32 and
 may land one ulp (at most 2^-7 of the value) apart.
+
+``uts_expand`` is held bit for bit against ``uts_expand_ref``.
 """
 import numpy as np
 import pytest
@@ -21,6 +23,8 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.mamba2_ssd import ssd_chunked, ssd_chunked_ref
+from repro_torch.kernels.uts_expand import uts_expand, uts_expand_ref
+from repro_torch.problems.uts import geom_thresholds
 
 
 def _inputs(seed, Bt, T, H, P, N):
@@ -85,3 +89,48 @@ def test_ssd_kernel_rejects_what_it_does_not_take(card):
     strided = C.transpose(1, 2).contiguous().transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         ssd_chunked(x, dt, A, B, strided, chunk=8)
+
+
+def _uts_inputs(seed, M, base_lo, base_hi):
+    """Descriptors with the high bit set (uint32 bits in int32), bases in
+    [base_lo, base_hi), the thresholds of the paper's b0 = 4 tree."""
+    rng = np.random.default_rng(seed)
+    bits = lambda: torch.from_numpy(
+        (rng.integers(0, 2 ** 31, M, dtype=np.int64) | 2 ** 31)
+        .astype(np.uint32).view(np.int32)).cuda()
+    base = torch.from_numpy(
+        rng.integers(base_lo, base_hi, M).astype(np.int32)).cuda()
+    thr = torch.from_numpy(geom_thresholds(4.0).view(np.int32)).cuda()
+    return bits(), bits(), base, thr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,width,base_hi", [
+    (1024, 256, 32),          # the UTS path: 1024 places, width n = 256
+    (1, 8, 32),
+    (1000, 64, 32),           # M not a multiple of 128
+    (77, 256, 2 ** 31 - 256),  # base + lane up to 2^31 - 1
+])
+def test_uts_expand_kernel_is_bit_exact(card, M, width, base_hi):
+    d0, d1, base, thr = _uts_inputs(M + width, M, max(0, base_hi - 32),
+                                    base_hi)
+    ops.reset_launches()
+    got = uts_expand(d0, d1, base, thr, width=width)
+    want = uts_expand_ref(d0, d1, base, thr, width)
+    torch.cuda.synchronize()
+    assert ops.kernel_launches()["uts_expand"] == 1
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32 and g.shape == (M, width)
+        assert torch.equal(g, w)
+    assert int(got[2].min()) >= 0 and int(got[2].max()) <= 32
+
+
+@pytest.mark.cuda
+def test_uts_expand_kernel_rejects_what_it_does_not_take(card):
+    d0, d1, base, thr = _uts_inputs(0, 16, 0, 8)
+    with pytest.raises(TypeError, match="d0 must be int32"):
+        uts_expand(d0.long(), d1, base, thr, width=8)
+    with pytest.raises(ValueError, match="thresholds shape"):
+        uts_expand(d0, d1, base, thr[:16], width=8)
+    with pytest.raises(ValueError, match="width"):
+        uts_expand(d0, d1, base, thr, width=0)

@@ -54,7 +54,9 @@ def test_importing_every_module_loads_no_jax():
                                                         "repro_torch."))
     for m in ("repro_torch.serve.engine", "repro_torch.models.mamba2",
               "repro_torch.kernels.mamba2_ssd", "repro_torch.core.lifeline",
-              "repro_torch.core.stats", "repro_torch.configs.mamba2_130m"):
+              "repro_torch.core.stats", "repro_torch.configs.mamba2_130m",
+              "repro_torch.core.scheduler", "repro_torch.core.taskbag",
+              "repro_torch.problems.uts", "repro_torch.kernels.uts_expand"):
         assert m in mods, m
     assert len(mods) > 20
     code = (
@@ -95,6 +97,8 @@ def test_chip_smoke_fails_without_card_or_alone(tmp_path):
 
 def test_cuda_requested_without_cuda_raises(monkeypatch):
     from repro_torch.configs import ARCHS
+    from repro_torch.core import GLB, run_sim
+    from repro_torch.problems.fib import fib_problem
     from repro_torch.models import init_lm, make_cache
     from repro_torch.serve import Engine, GLBReplicaBalancer
     from repro_torch.weights import params_from_jax
@@ -113,6 +117,9 @@ def test_cuda_requested_without_cuda_raises(monkeypatch):
                  lambda: GLBReplicaBalancer([Engine(scfg, sparams)
                                              for _ in range(2)]),
                  lambda: init_lm(scfg),
-                 lambda: make_cache(scfg, 1, 8)):
+                 lambda: make_cache(scfg, 1, 8),
+                 lambda: run_sim(fib_problem(8), 2),        # default: cuda
+                 lambda: run_sim(fib_problem(8), 2, device="cuda"),
+                 lambda: GLB(fib_problem(8), P=2).run()):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
