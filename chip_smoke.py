@@ -6,8 +6,8 @@
 Phases, in order; any failure exits non-zero:
   1. device  — requires CUDA; prints the card's name and power limit.
   2. build   — compiles the CUDA kernels (csrc/attention.cu, csrc/ssd.cu,
-               csrc/uts.cu) with nvcc, one process per source, in
-               parallel.
+               csrc/uts.cu, csrc/gmm.cu) with nvcc, one process per
+               source, in parallel.
   3. kernels — each of the four attention kernels against its plain
                PyTorch version at the serving path's full-width shapes
                (tinyllama-1.1b: 32 query heads, 4 KV heads, head dim 64)
@@ -19,7 +19,25 @@ Phases, in order; any failure exits non-zero:
                kernel, its plain version and, for attention,
                scaled_dot_product_attention on the same work (a yardstick
                only: the port never calls it), replayed from a CUDA graph
-               and issued eagerly.
+               and issued eagerly. gmm against gmm_ref at the two shapes
+               the moonshot-v1-16b-a3b MoE layer gives it (64 experts of 1
+               row at decode, of 30 rows for a 256-token prefill bucket;
+               D 2048 / F 1408, and F 2048 / D 1408 for wo) and an uneven
+               case (empty groups, rows past the last group), in bf16 and
+               f32, timed beside torch.bmm on the same work.
+  3b. moe    — moonshot-v1-16b-a3b at full width (48 layers, 64 experts
+               top-6, random weights made on the card from a seed, bf16,
+               56 GB) serving 16 requests in the three engine modes; gmm
+               and the mode's attention kernels must launch in each. A
+               profile of one decode step (device busy, gmm's share), the
+               share of routed slots decode drops at 8 slots, then its
+               parity checks: kernel vs plain greedy tokens on the f32
+               smoke config at capacity 8.0 and 1.25 in every mode, one
+               full-width MoE layer (bf16 and f32) kernel vs plain element
+               by element, the full-width last-position logits, and the GLB
+               expert rebalancer on one layer's counts over 8 ranks (the
+               permuted layer must give the same output). The weights are
+               freed before the next phase.
   4. serve   — tinyllama-1.1b at full width (22 layers, random weights
                from a seed, bf16) serving 16 requests through the engine
                in its three modes: contiguous, paged, and paged with
@@ -90,11 +108,13 @@ REPLACES = {
     "paged_decode": "src/repro/kernels/paged_decode.py:101",
     "paged_prefill": "src/repro/kernels/paged_decode.py:215",
     "ssd_chunked": "src/repro/kernels/mamba2_ssd.py:80",
+    "gmm": "src/repro/kernels/moe_gmm.py:51",
     "uts_expand": "src/repro/kernels/uts_expand.py:54",
 }
 SOURCES = {name: "src/repro_torch/csrc/attention.cu" for name in REPLACES}
 SOURCES["ssd_chunked"] = "src/repro_torch/csrc/ssd.cu"
 SOURCES["uts_expand"] = "src/repro_torch/csrc/uts.cu"
+SOURCES["gmm"] = "src/repro_torch/csrc/gmm.cu"
 ATTENTION = ("flash_attention", "flash_decode", "paged_decode",
              "paged_prefill")
 
@@ -385,6 +405,7 @@ def phase_kernels():
                 f"{flops} flop); issued eagerly: kernel {eager:.4f} "
                 f"plain {plain_eager:.4f} library {lib_eager:.4f} ms")
     rows["ssd_chunked"] = kernel_ssd(rng)
+    rows["gmm"] = kernel_gmm(rng)
     return rows
 
 
@@ -492,6 +513,375 @@ def kernel_ssd(rng):
     else:
         fail("ssd_chunked accepted a ragged last chunk")
     return row
+
+
+# The moonshot-v1-16b-a3b MoE layer's grouped products: 64 experts, d_model
+# 2048, d_ff 1408; cap 1 row per expert at decode (8 slots x top-6), 30 for
+# a 256-token prefill bucket (capacity factor 1.25).
+MOE = "moonshot-v1-16b-a3b"
+GMM_E, GMM_D, GMM_F = 64, 2048, 1408
+GMM_CAPS = {"decode": 1, "prefill": 30}
+
+
+def _gmm_inputs(rng, dtype, sizes, T, D, F):
+    import numpy as np
+    import torch
+
+    f = lambda *s: torch.from_numpy(
+        rng.standard_normal(s).astype(np.float32)).to(DEVICE)
+    x = f(T, D).to(dtype)
+    w = (f(len(sizes), D, F) / D ** 0.5).to(dtype)
+    return x, w, torch.tensor(sizes, dtype=torch.int32, device=DEVICE)
+
+
+def kernel_gmm(rng):
+    """gmm against gmm_ref at the MoE layer's decode and prefill shapes
+    (wg / wi: D 2048 -> F 1408; wo: 1408 -> 2048) and an uneven case
+    (empty groups, a tail past the last group), bf16 and f32, under the
+    SSD check's element-wise rule. Times the bf16 shapes beside gmm_ref and
+    torch.bmm on (E, cap, D) x (E, D, F), which computes the same function
+    at equal group sizes. Returns the row of the decode shape (the one the
+    decode loop launches)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.moe_gmm import gmm, gmm_ref
+
+    E = GMM_E
+    uneven = [int(n) for n in rng.integers(0, 41, E) * (rng.random(E) < .8)]
+    cases = []
+    for label, cap in GMM_CAPS.items():
+        cases.append((label, [cap] * E, E * cap, GMM_D, GMM_F, cap))
+        cases.append((label + "-wo", [cap] * E, E * cap, GMM_F, GMM_D, cap))
+    cases.append(("uneven", uneven, sum(uneven) + 37, GMM_D, GMM_F, None))
+    row = None
+    for dtype_name in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype_name)
+        for label, sizes, T, D, F, cap in cases:
+            x, w, gs = _gmm_inputs(rng, dt, sizes, T, D, F)
+            kern = lambda a=(x, w, gs): gmm(*a)
+            # the plain version reads the sizes on the host: give it a host
+            # copy, so that a CUDA graph can capture it
+            plain = lambda a=(x, w, gs.cpu()): gmm_ref(*a)
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            if not torch.isfinite(got.float()).all():
+                fail(f"gmm/{label}/{dtype_name}: non-finite output")
+            err, share = _ssd_err(got, want, SSD_REL[dtype_name])
+            total = min(sum(sizes), T)
+            tail_zero = bool((got[total:] == 0).all())
+            ok = share <= 1.0 and tail_zero
+            log(f"[kernels] gmm             {label:12s} {dtype_name:8s} "
+                f"T={T} D={D} F={F} E={E}: max_abs_err {err:.3e}, "
+                f"{share:.3f} of its limit ({SSD_REL[dtype_name]:g} x |want| "
+                f"+ 1e-4 x max); {T - total} rows past the groups "
+                f"{'zero' if tail_zero else 'NOT ZERO'} "
+                f"{'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                fail(f"gmm/{label}/{dtype_name} disagrees with gmm_ref: {err}")
+            if dtype_name != "bfloat16" or cap is None:
+                continue
+            el = x.element_size()
+            nbytes = (x.numel() + w.numel()) * el + 4 * E + T * F * el
+            flops = 2 * total * D * F        # the rows this input routes
+            bound_b = nbytes / PEAK_BYTES * 1e3
+            bound_f = flops / PEAK_FLOPS[dtype_name] * 1e3
+            ms_k, eager = time_ms(kern)
+            ms_p, plain_eager = time_ms(plain)
+            lib = lambda x=x, w=w, c=cap: torch.bmm(x.view(E, c, -1), w)
+            ms_l, lib_eager = time_ms(lib)
+            log(f"[kernels] gmm             {label:12s} kernel_ms {ms_k:.4f} "
+                f"plain_ms {ms_p:.4f} library_ms {ms_l:.4f} (torch.bmm) "
+                f"bound_ms {max(bound_b, bound_f):.5f} ("
+                f"{'bytes' if bound_b >= bound_f else 'operations'}: "
+                f"{nbytes} B, {flops} flop); issued eagerly: kernel "
+                f"{eager:.4f} plain {plain_eager:.4f} library "
+                f"{lib_eager:.4f} ms")
+            if label == "decode":
+                row = dict(
+                    name="gmm", route="cuda", source=SOURCES["gmm"],
+                    replaces=REPLACES["gmm"], launches=0, max_abs_err=err,
+                    ms=ms_k, plain_ms=ms_p, bound_ms=max(bound_b, bound_f),
+                    bound_by="bytes" if bound_b >= bound_f else "operations",
+                    library_ms=ms_l)
+    return row
+
+
+# ------------------------------------------------------------ phase 3b
+# Requests served in each engine mode (tinyllama's N_REQ).
+MOE_N_REQ = N_REQ
+# The attention kernels each engine mode runs, beside gmm.
+MOE_MODE_KERNELS = {
+    "contiguous": ("flash_attention", "flash_decode"),
+    "paged": ("flash_attention", "paged_decode"),
+    "paged+prefix+chunk": ("paged_prefill", "paged_decode"),
+}
+# A full-width bf16 MoE layer, kernel path vs plain path: routing is the
+# same on both (it precedes gmm), but the gate, up and down products and
+# the combine each round to bf16, so an output carries a few bf16 ulps of
+# the output's scale from the one-ulp differences of the gmm outputs. Held
+# element by element to 2^-6 |want| + 2^-6 max |want| (two ulps of the
+# value and two of the largest output); f32 to the SSD rule.
+MOE_LAYER_ABS = {"bfloat16": 2.0 ** -6, "float32": 1e-4}
+
+
+def phase_moe():
+    """moonshot-v1-16b-a3b at full width: serve, profile, parity. Returns
+    gmm's launches over the three serving runs."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_lm
+    from repro_torch.serve import Engine
+
+    cfg = ARCHS[MOE]
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    t0 = time.time()
+    params = init_lm(cfg, gen, device=DEVICE)
+    torch.cuda.synchronize()
+    log(f"[moe] {cfg.name}: {cfg.n_layers} layers d_model {cfg.d_model} "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, {cfg.n_experts} experts of "
+        f"d_ff {cfg.d_ff}, top-{cfg.top_k}, capacity factor "
+        f"{cfg.capacity_factor}, vocab {cfg.vocab}; "
+        f"{cfg.param_count() / 1e9:.2f} B parameters, {cfg.dtype}: "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card, made "
+        f"there in {time.time() - t0:.1f} s")
+    gmm_launches = 0
+    for mode, kw in MODES.items():
+        reqs = _requests(np.random.default_rng(1), cfg.vocab, n=MOE_N_REQ)
+        eng = Engine(cfg, params, device=DEVICE, **SERVE, **kw)
+        torch.cuda.synchronize()
+        ops.reset_launches()               # counts of this run only
+        t0 = time.time()
+        n = _serve(eng, reqs)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = ops.kernel_launches()
+        if not all(r.done for r in reqs):
+            fail(f"moe {mode}: {sum(not r.done for r in reqs)} requests "
+                 f"unfinished after {n} steps")
+        for r in reqs:
+            if not r.out or min(r.out) < 0 or max(r.out) >= cfg.vocab:
+                fail(f"moe {mode}: request {r.rid} emitted bad ids")
+        st = eng.stats()
+        toks = st["tokens_out"]
+        log(f"[moe] {mode}: {len(reqs)} requests, {toks} tokens in "
+            f"{wall:.2f} s = {toks / wall:.1f} tok/s; TTFT p50 "
+            f"{st['ttft_ms_p50']:.1f} ms p99 {st['ttft_ms_p99']:.1f} ms; "
+            f"{st['host_syncs'] / toks:.4f} host syncs/token; "
+            f"{st['steps']} engine steps; launches {counts}")
+        for name in ("gmm",) + MOE_MODE_KERNELS[mode]:
+            if counts[name] <= 0:
+                fail(f"moe {mode}: kernel {name} was never launched")
+        gmm_launches += counts["gmm"]
+        del eng
+    log(f"[moe] gmm launches over the three runs: {gmm_launches}")
+    _moe_profile(cfg, params)
+    _moe_parity(cfg, params)
+    log(f"[moe] peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+        " GB; freeing the weights")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return gmm_launches
+
+
+def _moe_profile(cfg, params):
+    """One engine step of contiguous decode with every slot busy (8 token
+    iterations per slot) on the host clock, another under torch.profiler:
+    device busy share and gmm's share of the device time. Then one more
+    decode step's routing statistics: the share of routed slots dropped."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import forward
+    from repro_torch.models.moe import capacity
+    from repro_torch.serve import Engine
+
+    eng = Engine(cfg, params, device=DEVICE, **SERVE)
+    for r in _requests(np.random.default_rng(4), cfg.vocab,
+                       n=SERVE["max_slots"]):
+        r.max_new = 128                # nobody finishes inside the window
+        eng.submit(r)
+    eng.step()                         # admits every slot; warm-up
+    torch.cuda.synchronize()
+    t0 = time.time()
+    eng.step()
+    torch.cuda.synchronize()
+    wall = (time.time() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        eng.step()
+        torch.cuda.synchronize()
+        wall_prof = (time.time() - t0) * 1e3
+    busy = kern = attn = 0.0
+    records = n_gmm = 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        ms = e.time_range.elapsed_us() / 1e3
+        busy += ms
+        records += 1
+        if "gmm_kernel" in e.name:
+            kern += ms
+            n_gmm += 1
+        elif "decode_kernel" in e.name or "attention_kernel" in e.name:
+            attn += ms
+    if records == 0 or n_gmm == 0:
+        fail(f"moe profile: torch.profiler recorded {records} kernels, "
+             f"{n_gmm} of them gmm")
+    log(f"[moe] contiguous decode, {SERVE['max_slots']} busy slots: "
+        f"{wall:.2f} ms per engine step ({SERVE['steps_per_sync']} tokens "
+        f"per slot) on the host clock; profiled step {wall_prof:.2f} ms: "
+        f"device busy {busy:.2f} ms = {100 * busy / wall:.1f}% of the step "
+        f"({100 * busy / wall_prof:.1f}% of the profiled one) in "
+        f"{records} records; gmm_kernel {kern:.2f} ms in {n_gmm} launches "
+        f"= {100 * kern / busy:.1f}% of the device time "
+        f"({kern / n_gmm * 1e3:.1f} us each); attention kernels {attn:.2f}"
+        f" ms")
+    # Routing statistics of one decode iteration of the 8 busy slots.
+    lens = torch.as_tensor(eng.lens, device=DEVICE)
+    toks = torch.as_tensor(eng.tokens, device=DEVICE)
+    with torch.inference_mode():
+        _, _, aux = forward(params, cfg, toks, cache=eng.cache,
+                            cache_len=lens, mode="decode")
+    routed = cfg.n_layers * SERVE["max_slots"] * cfg.top_k
+    dropped = float(aux["dropped"])
+    log(f"[moe] one decode iteration at {SERVE['max_slots']} slots: "
+        f"capacity {capacity(SERVE['max_slots'], cfg)} slot(s) per expert "
+        f"per layer, {dropped:.0f} of "
+        f"{routed} routed slots dropped = {100 * dropped / routed:.1f}% "
+        f"(the reference's capacity factor {cfg.capacity_factor})")
+
+
+def _moe_parity(cfg, params):
+    """Kernel path vs plain path for the MoE family."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models import init_lm
+    from repro_torch.models.glb_moe import (glb_expert_rebalance,
+                                            permute_expert_params)
+    from repro_torch.models.moe import moe_fwd
+    from repro_torch.serve import Engine
+
+    # (a) f32 smoke config: greedy tokens, kernel vs plain, every mode, at
+    # capacity 8.0 (dropless) and the config's own 1.25.
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    base = cfg.smoke()
+    sparams = init_lm(base, gen, device=DEVICE)
+    kw = dict(max_slots=4, max_seq=128, pad_len=32, steps_per_sync=4)
+    modes = dict(MODES, paged=dict(paged=True, block_size=8))
+    modes["paged+prefix+chunk"] = dict(paged=True, block_size=8,
+                                       prefix_cache=True, prefill_chunk=16,
+                                       token_budget=32)
+    for factor in (8.0, base.capacity_factor):
+        for mode, mkw in modes.items():
+            outs = []
+            for impl in ("auto", "ref"):
+                c = _impl_cfg(dataclasses.replace(base,
+                                                  capacity_factor=factor),
+                              impl)
+                rng = np.random.default_rng(2)
+                reqs = [_smoke_req(rng, i) for i in range(8)]
+                _serve(Engine(c, sparams, device=DEVICE, **kw, **mkw), reqs)
+                if not all(r.done for r in reqs):
+                    fail(f"moe parity {mode}/{impl}: unfinished requests")
+                outs.append([r.out for r in reqs])
+            same = outs[0] == outs[1]
+            log(f"[parity] f32 smoke {base.name} capacity {factor} {mode}: "
+                f"kernel vs plain greedy tokens "
+                f"{'identical' if same else 'DIFFER'}")
+            if not same:
+                fail(f"MoE greedy tokens differ between kernel and plain "
+                     f"path ({mode}, capacity {factor})")
+
+    # (b) one full-width MoE layer, kernel vs plain, element by element,
+    # at the prefill bucket and at decode; bf16 weights, and the same
+    # weights in f32.
+    p = params["blocks"][0]["moe"]
+    rng = np.random.default_rng(8)
+    counts = None
+    for dtype_name in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype_name)
+        lp = {k: v.to(dt) for k, v in p.items()}
+        for B, S in ((1, SERVE["pad_len"]), (SERVE["max_slots"], 1)):
+            x = torch.from_numpy(rng.standard_normal(
+                (B, S, cfg.d_model)).astype(np.float32)).to(DEVICE, dt)
+            with torch.inference_mode():
+                y, aux = moe_fwd(lp, x, cfg)
+                yr, auxr = moe_fwd(lp, x, _impl_cfg(cfg, "ref"))
+            torch.cuda.synchronize()
+            same_routing = all(torch.equal(aux[k], auxr[k]) for k in
+                               ("expert_counts", "dropped"))
+            err = (y.float() - yr.float()).abs()
+            big = yr.float().abs().max().item()
+            limit = (SSD_REL[dtype_name] * yr.float().abs()
+                     + MOE_LAYER_ABS[dtype_name] * max(1.0, big))
+            share = (err / limit).max().item()
+            ok = (share <= 1.0 and same_routing
+                  and bool(torch.isfinite(y.float()).all()))
+            log(f"[parity] {cfg.name} one MoE layer {dtype_name} x ({B}, "
+                f"{S}, {cfg.d_model}), capacity {aux['capacity']}: routing "
+                f"{'identical' if same_routing else 'DIFFERS'} "
+                f"({float(aux['dropped']):.0f} slots dropped); y "
+                f"max_abs_err {err.max().item():.3e} vs max |y| {big:.3e}, "
+                f"{share:.3f} of its limit {'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                fail(f"{cfg.name}: full-width MoE layer differs between "
+                     f"kernel and plain path ({dtype_name}, {B}x{S})")
+            if counts is None:
+                counts, x0, y0 = aux["expert_counts"], x, y
+        del lp
+
+    # (c) the full-width last-position logits.
+    _logit_parity(cfg, params)
+
+    # (d) the GLB expert rebalancer on the card: the layer's counts over 8
+    # ranks; the permuted layer (and, in case the rebalancer leaves the
+    # placement as it was, a random placement too) must give the
+    # unpermuted layer's output bit for bit: every row meets the same
+    # weights in the same kernel, and the combine adds in the same order.
+    ranks = 8
+    perm0 = np.arange(cfg.n_experts)
+    res = glb_expert_rebalance(counts.cpu().numpy(), perm0, n_ranks=ranks)
+    log(f"[parity] GLB expert rebalance of one layer's counts over {ranks} "
+        f"ranks: loads {res.loads_before.tolist()} -> "
+        f"{res.loads_after.tolist()} in {len(res.swaps)} swaps")
+    for name, perm in (("rebalanced", res.perm),
+                       ("random", rng.permutation(cfg.n_experts))):
+        moved = permute_expert_params({k: p[k] for k in ("wg", "wi", "wo")},
+                                      perm0, perm)
+        with torch.inference_mode():
+            y1, _ = moe_fwd(dict(p, **moved), x0, cfg,
+                            expert_perm=torch.as_tensor(perm, device=DEVICE))
+        same = torch.equal(y1, y0)
+        log(f"[parity] {name} placement ({int((perm != perm0).sum())} "
+            f"experts moved): layer output "
+            f"{'identical' if same else 'DIFFERS'} (max_abs_err "
+            f"{(y1.float() - y0.float()).abs().max().item():.3e})")
+        if not same:
+            fail(f"the permuted MoE layer ({name}) does not compute the "
+                 "same output")
+
+
+def _impl_cfg(cfg, impl):
+    """cfg with every kernel knob set to ``auto`` (the kernels) or ``ref``
+    (the plain versions)."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, attn_impl=impl, decode_impl=impl,
+                               moe_impl="ref" if impl == "ref" else "auto")
 
 
 # ------------------------------------------------------------ phase 4
@@ -1088,10 +1478,8 @@ def phase_parity(params_full, mamba_full):
 def _logit_parity(cfg, params):
     """Kernel vs plain path on one 256-token prompt at full width, bf16:
     the last position's logits. Both paths round activations to bf16
-    between layers, and 22-24 layers compound one-ulp differences: hold
+    between layers, and 22-48 layers compound one-ulp differences: hold
     them to 5% of the logit range."""
-    import dataclasses
-
     import numpy as np
     import torch
 
@@ -1103,8 +1491,8 @@ def _logit_parity(cfg, params):
     lg = {}
     with torch.inference_mode():
         for impl in ("auto", "ref"):
-            c = dataclasses.replace(cfg, attn_impl=impl, decode_impl=impl)
-            lg[impl] = forward(params, c, toks)[0][0, -1].float()
+            lg[impl] = forward(params, _impl_cfg(cfg, impl),
+                               toks)[0][0, -1].float()
     if not torch.isfinite(lg["auto"]).all():
         fail(f"{cfg.name}: full-width prefill logits are not finite")
     err = (lg["auto"] - lg["ref"]).abs().max().item()
@@ -1139,21 +1527,34 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke FAILED: no CUDA device", file=sys.stderr)
         return 2
-    smi = phase_device()
-    phase_build()
-    rows = phase_kernels()
-    params, totals, steps = phase_serve()
-    phase_profile(params)
-    mamba, ssd_launches = phase_fabric()
-    phase_prefill_profile(mamba)
-    rows["uts_expand"], uts_launches = phase_glb()
-    phase_parity(params, mamba)
+    t_start = time.time()
+
+    def timed(fn, *args):
+        t0 = time.time()
+        out = fn(*args)
+        log(f"[time] {fn.__name__}: {time.time() - t0:.1f} s")
+        return out
+
+    smi = timed(phase_device)
+    timed(phase_build)
+    rows = timed(phase_kernels)
+    gmm_launches = timed(phase_moe)
+    params, totals, steps = timed(phase_serve)
+    timed(phase_profile, params)
+    mamba, ssd_launches = timed(phase_fabric)
+    timed(phase_prefill_profile, mamba)
+    rows["uts_expand"], uts_launches = timed(phase_glb)
+    timed(phase_parity, params, mamba)
+    log(f"[time] all phases: {time.time() - t_start:.1f} s")
     all_steps = sum(steps.values())
     for name in ATTENTION:
         rows[name]["launches"] = totals[name]
         log(f"[summary] {name}: {totals[name]} launches over {all_steps} "
             f"engine steps of the tinyllama-1.1b runs = "
             f"{totals[name] / all_steps:.2f} per step")
+    rows["gmm"]["launches"] = gmm_launches
+    log(f"[summary] gmm: {gmm_launches} launches over the three "
+        f"{MOE} runs")
     rows["ssd_chunked"]["launches"] = ssd_launches
     log(f"[summary] ssd_chunked: {ssd_launches} launches in the "
         "mamba2-130m fabric run")

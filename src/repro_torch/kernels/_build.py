@@ -1,14 +1,15 @@
 """Build and load the CUDA kernels of ``csrc/*.cu``.
 
-Each source (``attention.cu``, ``ssd.cu``, ``uts.cu``) is compiled by
-``nvcc`` for ``sm_90a`` into a shared library of its own with a plain C interface (no
-PyTorch headers, so it builds in seconds) and loaded with ctypes. The
-builds land in ``build/repro_torch/`` at the root of the checkout, each
-named by a hash of its source and the flags, so an edited source rebuilds
-its own library only and an unchanged one is reused. Nothing is built at
-import: the first launch of a kernel builds its library, and
-``build_all`` builds every library at once, one ``nvcc`` per source, all
-running together. A missing ``nvcc`` or a failed build raises.
+Each source (``attention.cu``, ``ssd.cu``, ``uts.cu``, ``gmm.cu``) is
+compiled by ``nvcc`` for ``sm_90a`` into a shared library of its own with
+a plain C interface (no PyTorch headers, so it builds in seconds) and
+loaded with ctypes. The builds land in ``build/repro_torch/`` at the root
+of the checkout, each named by a hash of its source and the flags, so an
+edited source rebuilds its own library only and an unchanged one is
+reused. Nothing is built at import: the first launch of a kernel builds
+its library, and ``build_all`` builds every library at once, one
+``nvcc`` per source, all running together. A missing ``nvcc`` or a
+failed build raises.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = {name: _PKG / "csrc" / f"{name}.cu"
-           for name in ("attention", "ssd", "uts")}
+           for name in ("attention", "ssd", "uts", "gmm")}
 BUILD_DIR = _PKG.parent.parent / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -59,6 +60,10 @@ SIGNATURES = {
     "uts": {
         # d0, d1, base, thresholds, cd0, cd1, m, M, W, stream
         "repro_uts_expand": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    },
+    "gmm": {
+        # dtype, x, w, group_sizes, out, T, D, F, E, stream
+        "repro_gmm": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
 }
 

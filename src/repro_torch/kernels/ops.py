@@ -1,13 +1,16 @@
-"""Dispatch layer: the attention and SSD entry points the models call, and
-the UTS node expansion the task executor's UTS problem calls.
+"""Dispatch layer: the attention, SSD and grouped-matmul (MoE expert
+compute) entry points the models call, and the UTS node expansion the
+task executor's UTS problem calls.
 
 The routing rules and error checks are those of ``repro.kernels.ops``
-(``attention``, ``ssd``, ``expand_uts``). With ``impl="auto"`` a CUDA
-tensor goes to the hand-written kernel and a CPU tensor to its plain
+(``attention``, ``ssd``, ``gmm``, ``expand_uts``). With ``impl="auto"`` a
+CUDA tensor goes to the hand-written kernel and a CPU tensor to its plain
 version (each kernel wrapper makes that choice from the tensor's device);
-the ``*_ref`` impls (and ``ssd``'s ``ref`` / ``chunked``, ``expand_uts``'s
-``ref``) force a plain version, which is the yardstick the kernels are
-held to.
+the ``*_ref`` impls (and ``ssd``'s ``ref`` / ``chunked``, ``gmm``'s and
+``expand_uts``'s ``ref``) force a plain version, which is the yardstick
+the kernels are held to. Every TPU kernel of the JAX package has its
+kernel here: the four attention kernels, ``ssd_chunked``, ``gmm`` and
+``uts_expand``.
 """
 from __future__ import annotations
 
@@ -16,15 +19,18 @@ from typing import Dict
 from .flash_attention import attention_ref, flash_attention
 from .flash_decode import decode_ref, flash_decode
 from .mamba2_ssd import ssd_chunked, ssd_chunked_ref, ssd_ref
+from .moe_gmm import gmm as gmm_kernel
+from .moe_gmm import gmm_ref
 from .paged_decode import (paged_decode, paged_decode_ref, paged_prefill,
                            paged_prefill_ref)
 from .uts_expand import uts_expand, uts_expand_ref
 
 IMPLS = ("auto", "ref", "decode", "decode_ref", "paged", "paged_ref")
 SSD_IMPLS = ("auto", "ref", "chunked")
+GMM_IMPLS = ("auto", "ref")
 UTS_IMPLS = ("auto", "ref")
 KERNELS = (flash_attention, flash_decode, paged_decode, paged_prefill,
-           ssd_chunked, uts_expand)
+           ssd_chunked, gmm_kernel, uts_expand)
 
 
 def kernel_launches() -> Dict[str, int]:
@@ -99,6 +105,17 @@ def ssd(x, dt, A, B, C, *, chunk: int = 64, impl: str = "auto"):
     if impl == "chunked":
         return ssd_chunked_ref(x, dt, A, B, C, chunk=max(chunk, 128))
     return ssd_chunked(x, dt, A, B, C, chunk=chunk)
+
+
+def gmm(x, w, group_sizes, *, impl: str = "auto"):
+    """Grouped matmul for MoE expert compute. impl: auto | ref. ``auto``
+    runs the ``gmm`` kernel wrapper (the kernel for a CUDA tensor, its
+    plain version for a CPU one); ``ref`` forces ``gmm_ref``."""
+    if impl not in GMM_IMPLS:
+        raise ValueError(f"unknown gmm impl {impl!r}; have {GMM_IMPLS}")
+    if impl == "ref":
+        return gmm_ref(x, w, group_sizes)
+    return gmm_kernel(x, w, group_sizes)
 
 
 def expand_uts(d0, d1, base, thresholds, *, width: int = 64,

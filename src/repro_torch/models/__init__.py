@@ -1,5 +1,6 @@
 """Model substrate: the decoder-only LM in its dense (GQA attention,
-SwiGLU) and ssm (Mamba2) families."""
+SwiGLU), moe (GQA attention, top-k routed experts) and ssm (Mamba2)
+families."""
 from .config import SHAPES, ModelConfig, ShapeConfig
 from .lm import decode_step, prefill, sample_tokens
 from .transformer import (forward, init_lm, lm_logits, make_cache,

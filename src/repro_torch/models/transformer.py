@@ -1,5 +1,6 @@
 """Decoder-only LM assembly for the ported families:
   dense : [rmsnorm -> GQA attn -> rmsnorm -> SwiGLU] x L
+  moe   : [rmsnorm -> GQA attn -> rmsnorm -> MoE] x L
   ssm   : [rmsnorm -> Mamba2] x L
 
 Parameters are a dict: ``embed`` (Vp, D), ``head`` (D, Vp) unless tied,
@@ -20,13 +21,14 @@ from .attention import attn_fwd, attn_init
 from .config import ModelConfig
 from .layers import embed_init, mlp_fwd, mlp_init, resolve_device, rmsnorm
 from .mamba2 import STATE_KEYS, mamba_fwd, mamba_init
+from .moe import moe_fwd, moe_init
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-FAMILIES = ("dense", "ssm")
+FAMILIES = ("dense", "moe", "ssm")
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -55,13 +57,16 @@ def init_lm(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
             for _ in range(cfg.n_layers)
         ]
     else:
-        params["blocks"] = [
-            {"ln1": zeros(),
-             "attn": attn_init(cfg, generator, device, dt),
-             "ln2": zeros(),
-             "mlp": mlp_init(D, cfg.d_ff, generator, device, dt)}
-            for _ in range(cfg.n_layers)
-        ]
+        params["blocks"] = []
+        for _ in range(cfg.n_layers):
+            blk = {"ln1": zeros(),
+                   "attn": attn_init(cfg, generator, device, dt),
+                   "ln2": zeros()}
+            if cfg.family == "moe":
+                blk["moe"] = moe_init(cfg, generator, device, dt)
+            else:
+                blk["mlp"] = mlp_init(D, cfg.d_ff, generator, device, dt)
+            params["blocks"].append(blk)
     params["final_ln"] = zeros()
     return params
 
@@ -127,9 +132,21 @@ def make_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
 
 
 # -------------------------------------------------------------- forward
+def _zero_aux(cfg: ModelConfig, device):
+    aux = {"aux_loss": torch.zeros((), device=device)}
+    if cfg.family == "moe":
+        aux["expert_counts"] = torch.zeros(cfg.n_experts, device=device)
+        aux["dropped"] = torch.zeros((), device=device)
+    return aux
+
+
 def run_layers(params, cfg: ModelConfig, x, positions, cache, cache_len,
                mode, block_tables=None):
-    """Apply every block; caches are per-layer views updated in place."""
+    """Apply every block; caches are per-layer views updated in place.
+    Returns (x, cache, aux): aux sums each layer's ``aux_loss`` (and, for
+    the moe family, ``expert_counts`` and ``dropped``) as JAX's scan
+    does."""
+    aux = _zero_aux(cfg, x.device)
     if cfg.family == "ssm":
         # Per-slot lengths in decode: -1 marks a slot whose state stays.
         active = (cache_len >= 0 if mode == "decode"
@@ -142,7 +159,7 @@ def run_layers(params, cfg: ModelConfig, x, positions, cache, cache_len,
                              rmsnorm(x, bp["ln"], cfg.norm_eps), cfg,
                              cache=mcache, mode=mode, active=active)
             x = x + h
-        return x, cache
+        return x, cache, aux
     for li, bp in enumerate(params["blocks"]):
         acache = ({"k": cache["k"][li], "v": cache["v"][li]}
                   if cache else None)
@@ -150,8 +167,15 @@ def run_layers(params, cfg: ModelConfig, x, positions, cache, cache_len,
                         positions, cfg, cache=acache, cache_len=cache_len,
                         mode=mode, block_tables=block_tables)
         x = x + h
-        x = x + mlp_fwd(bp["mlp"], rmsnorm(x, bp["ln2"], cfg.norm_eps))
-    return x, cache
+        hin = rmsnorm(x, bp["ln2"], cfg.norm_eps)
+        if cfg.family == "moe":
+            h, moe_aux = moe_fwd(bp["moe"], hin, cfg)
+            for k in aux:
+                aux[k] = aux[k] + moe_aux[k]
+        else:
+            h = mlp_fwd(bp["mlp"], hin)
+        x = x + h
+    return x, cache, aux
 
 
 def embed_tokens(params, cfg: ModelConfig, tokens):
@@ -183,8 +207,7 @@ def forward(params, cfg: ModelConfig, tokens, positions=None,
             off = (cl.clamp(min=0)[:, None] if cl.dim() == 1
                    else cl.expand(B, 1))
             positions = ar + off
-    x, cache = run_layers(params, cfg, x, positions, cache, cache_len, mode,
-                          block_tables)
+    x, cache, aux = run_layers(params, cfg, x, positions, cache, cache_len,
+                               mode, block_tables)
     x = rmsnorm(x, params["final_ln"], cfg.norm_eps)
-    aux = {"aux_loss": torch.zeros((), device=x.device)}
     return lm_logits(params, cfg, x), cache, aux

@@ -29,6 +29,12 @@ its prefill (prefill reads the conv state), and, as in the JAX engine,
 the prompt's padding to the ``pad_len`` bucket runs through the
 recurrence.
 
+The moe family runs as the dense one does. Its capacity drops are
+batch-global, so a token depends on what every other row of the same
+forward routes: each decode step runs all ``max_slots`` rows (idle ones
+included, with their last token) and each admission its whole padded
+bucket, as the JAX engine does.
+
 ``GLBReplicaBalancer`` drives a fabric of engines with the GLB lifeline
 protocol, tier 1 (queued requests) only.
 

@@ -16,13 +16,22 @@ bfloat16 y, two bf16 ulps, since both sides round once from float32 and
 may land one ulp (at most 2^-7 of the value) apart.
 
 ``uts_expand`` is held bit for bit against ``uts_expand_ref``.
+
+``gmm`` is held against ``gmm_ref`` under the same element-wise rule as
+``ssd_chunked`` (both accumulate in float32, in another order; bf16
+outputs are rounded once on each side), at the two shapes the MoE layer
+of moonshot-v1-16b-a3b gives it (64 experts, 1 row each at decode and 30
+for a 256-token prefill bucket, D 2048 / F 1408, and F 2048 / D 1408 for
+``wo``) and at edge cases: empty groups, boundaries inside a tile, T, D
+and F that fit no tile, and rows past the last group (zeros).
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import _build, ops
 from repro_torch.kernels.mamba2_ssd import ssd_chunked, ssd_chunked_ref
+from repro_torch.kernels.moe_gmm import gmm, gmm_ref
 from repro_torch.kernels.uts_expand import uts_expand, uts_expand_ref
 from repro_torch.problems.uts import geom_thresholds
 
@@ -134,3 +143,81 @@ def test_uts_expand_kernel_rejects_what_it_does_not_take(card):
         uts_expand(d0, d1, base, thr[:16], width=8)
     with pytest.raises(ValueError, match="width"):
         uts_expand(d0, d1, base, thr, width=0)
+
+
+def _gmm_inputs(seed, sizes, T, D, F, dtype):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((T, D)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((len(sizes), D, F))
+                          / np.sqrt(D)).astype(np.float32))
+    gs = torch.tensor(sizes, dtype=torch.int32)
+    return x.to("cuda", dtype), w.to("cuda", dtype), gs.cuda()
+
+
+GMM_CASES = [
+    # (sizes, T, D, F); the kernel's tile follows the mean group ceil(T / E)
+    ([1] * 64, 64, 2048, 1408),             # decode: 8 slots x top-6
+    ([30] * 64, 1920, 2048, 1408),          # prefill: 256-token bucket
+    ([30] * 64, 1920, 1408, 2048),          # prefill, the wo product
+    ([0, 5, 0, 40, 17, 0, 3], 80, 72, 100),  # empty groups, tail 15
+    ([33, 0, 0, 95], 128, 40, 36),          # straddled tiles, odd D and F
+    ([0, 0, 0], 19, 24, 8),                 # no group: all zeros
+    ([70, 2, 9], 81, 16, 200),              # a group far above the mean
+    ([10] * 12, 127, 300, 130),             # 16-row tiles, D, F not % 8
+    ([2, 3, 0, 4], 9, 64, 520),             # 4-row tiles, a partial column
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 0.0),
+                                       (torch.bfloat16, 2.0 ** -6)])
+@pytest.mark.parametrize("sizes,T,D,F", GMM_CASES)
+def test_gmm_kernel_matches_plain_version(card, sizes, T, D, F, dtype, rel):
+    x, w, gs = _gmm_inputs(T + D + F, sizes, T, D, F, dtype)
+    ops.reset_launches()
+    got = gmm(x, w, gs)
+    want = gmm_ref(x, w, gs)
+    torch.cuda.synchronize()
+    assert ops.kernel_launches()["gmm"] == 1
+    assert got.dtype == dtype and got.shape == (T, F)
+    assert torch.isfinite(got.float()).all()
+    assert _close(got, want, rel)
+    total = min(sum(sizes), T)
+    assert (got[total:] == 0).all()         # rows past the last group
+
+
+@pytest.mark.cuda
+def test_gmm_counts_launches_and_rejects_what_it_does_not_take(card):
+    x, w, gs = _gmm_inputs(0, [3, 5], 8, 16, 24, torch.bfloat16)
+    ops.reset_launches()
+    ops.gmm(x, w, gs)
+    ops.gmm(x, w, gs, impl="ref")            # the plain version: no launch
+    gmm(x, w, gs)
+    assert ops.kernel_launches()["gmm"] == 2
+    with pytest.raises(TypeError, match="mixed dtypes"):
+        gmm(x, w.float(), gs)
+    with pytest.raises(TypeError, match="int32"):
+        gmm(x, w, gs.long())
+    with pytest.raises(ValueError, match="shape"):
+        gmm(x, w, gs[:1])
+    with pytest.raises(ValueError, match="contiguous"):
+        gmm(x.t().contiguous().t(), w, gs)
+    with pytest.raises(ValueError, match="bad shapes"):
+        gmm(x, w[:, :8], gs)
+    assert ops.kernel_launches()["gmm"] == 2
+
+
+@pytest.mark.cuda
+def test_gmm_build_failure_raises(card, tmp_path, monkeypatch):
+    """A source that does not compile raises from the first launch; there
+    is no fallback to the plain version."""
+    bad = tmp_path / "gmm.cu"
+    bad.write_text("this is not CUDA\n")
+    monkeypatch.setattr(_build, "SOURCES", dict(_build.SOURCES, gmm=bad))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_libs", {})
+    x, w, gs = _gmm_inputs(0, [4], 4, 8, 8, torch.float32)
+    ops.reset_launches()
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        gmm(x, w, gs)
+    assert ops.kernel_launches()["gmm"] == 0

@@ -4,8 +4,17 @@ Same requests, same weights (carried over by ``params_from_jax``), greedy
 sampling: the port's engine must emit exactly the tokens of the JAX
 engine's per-token baseline in all five modes (step_legacy, contiguous,
 paged, paged + prefix cache, paged + prefix cache + chunked prefill), on
-``tinyllama-1.1b.smoke()`` and ``qwen2-1.5b.smoke()`` in float32. The
-requests and engine sizes are those of ``tests/test_serve_matrix.py``.
+``tinyllama-1.1b.smoke()``, ``qwen2-1.5b.smoke()`` and
+``moonshot-v1-16b-a3b.smoke()`` in float32, the MoE at capacity factor
+8.0 (dropless) as ``tests/test_serve_matrix.py`` serves it. The requests
+and engine sizes are those of ``tests/test_serve_matrix.py``. At the
+MoE's own factor 1.25 drops are batch-global, so a token depends on what
+the other slots (idle ones included) route in the same step: there the
+port's contiguous and paged engines are held to the JAX engine in the
+same mode, step for step. The JAX MoE engine decodes through its Pallas
+kernels in interpret mode: an idle slot's attention is zeros there and in
+the port (the JAX oracle gives it uniform attention instead), and idle
+slots are routed.
 
 ``mamba2-130m.smoke()`` (ssm family) runs in the three modes it supports.
 Its prompt padding runs through the recurrence, which washes out most of
@@ -16,6 +25,8 @@ engine's prefill scans sequentially, the port's in chunks). That decay
 also hides a stale conv state, so a last test holds an admission into a
 reused slot to a fresh engine's, bit for bit.
 """
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -29,7 +40,8 @@ from repro_torch.serve import Engine, Request
 from repro_torch.weights import params_from_jax
 from test_serve_matrix import KW, _reqs
 
-ARCH_NAMES = ["tinyllama-1.1b", "qwen2-1.5b"]
+MOE = "moonshot-v1-16b-a3b"
+ARCH_NAMES = ["tinyllama-1.1b", "qwen2-1.5b", MOE]
 SSM = "mamba2-130m"
 STATE_KEYS = ("conv_x", "conv_B", "conv_C", "ssm")
 _SETUP = {}
@@ -53,15 +65,25 @@ def _treqs(n=4, max_new=8, rid0=0):
                     max_new=r.max_new) for r in _reqs(n, max_new)]
 
 
+def moe_cfgs(factor):
+    """(JAX, port) configs of the MoE smoke model at capacity ``factor``;
+    the JAX one decodes through its interpret-mode kernels."""
+    cfg = dataclasses.replace(ARCHS[MOE].smoke(), capacity_factor=factor)
+    return (dataclasses.replace(cfg, decode_impl="decode_interpret"),
+            dataclasses.replace(T_ARCHS[MOE].smoke(),
+                                capacity_factor=factor))
+
+
 def setup(arch):
     """(torch cfg, torch params, JAX legacy-engine greedy tokens)."""
     if arch not in _SETUP:
-        cfg = ARCHS[arch].smoke()
+        cfg, tcfg = ARCHS[arch].smoke(), T_ARCHS[arch].smoke()
+        if cfg.family == "moe":
+            cfg, tcfg = moe_cfgs(8.0)
         jp = init_lm(jax.random.key(0), cfg)
         _JAX[arch] = (cfg, jp)
         je = JEngine(cfg, jp, **KW)
         base = _run(je, _reqs(), je.step_legacy)
-        tcfg = T_ARCHS[arch].smoke()
         tp = params_from_jax(jax.tree.map(np.asarray, jp), tcfg,
                              device="cpu")
         _SETUP[arch] = (tcfg, tp, base)
@@ -96,6 +118,31 @@ def test_greedy_tokens_match_jax_engine(arch, mode):
         assert e.pool.free_blocks == e.pool.num_blocks
     if mode == "paged+prefix+chunk":
         assert e.sched.chunks_scheduled >= len(base)
+
+
+@pytest.mark.parametrize("mode", ["contiguous", "paged"])
+def test_moe_at_its_capacity_factor_matches_jax_engine(mode):
+    """Capacity 1.25: drops happen (JAX's summed ``dropped`` > 0 over the
+    run), and the tokens are the JAX engine's in the same mode."""
+    from repro.models import forward as j_forward
+    from repro.serve.engine import Request as JRequest
+
+    _, tp, _ = setup(MOE)
+    jp = _JAX[MOE][1]
+    jcfg, tcfg = moe_cfgs(1.25)
+    je = JEngine(jcfg, jp, **KW, **MODES[mode])
+    te = Engine(tcfg, tp, device="cpu", **KW, **MODES[mode])
+    reqs = _reqs(6, 10)
+    jreqs = [JRequest(rid=r.rid, prompt=r.prompt, max_new=r.max_new)
+             for r in reqs]
+    want = _run(je, jreqs)
+    assert _run(te, _treqs(6, 10)) == want
+    assert (te.steps, te.tokens_out, te.host_syncs) == (
+        je.steps, je.tokens_out, je.host_syncs)
+    # the reference drops routed slots on these prompts
+    toks = np.asarray([r.prompt[:KW["pad_len"]] for r in reqs[:2]])
+    _, _, aux = j_forward(jp, jcfg, tokens=toks)
+    assert float(aux["dropped"]) > 0
 
 
 def test_host_syncs_match_jax_and_drop_by_steps_per_sync():

@@ -5,10 +5,16 @@ pairs, termination, and ``match_steals`` over random cases, with the JAX
 reference's random-round draws (``randint`` from the superstep-folded
 key) passed to the port as its candidates. The balancer runs fabrics of 2
 and 3 replicas (contiguous and paged engines mixed) on
-``mamba2-130m.smoke()`` and ``tinyllama-1.1b.smoke()`` with every request
-placed on replica 0: the port must emit the JAX fabric's tokens, its
-``decisions`` log and its ``collect()["_balancer"]`` counters.
+``mamba2-130m.smoke()`` and ``tinyllama-1.1b.smoke()``, and of 2 on
+``moonshot-v1-16b-a3b.smoke()`` at its own capacity factor 1.25, with
+every request placed on replica 0: the port must emit the JAX fabric's
+tokens, its ``decisions`` log and its ``collect()["_balancer"]``
+counters. (The JAX MoE engines decode through the interpret-mode Pallas
+kernels, whose idle-slot attention the port follows; see
+``test_torch_engine.py``.)
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -117,6 +123,8 @@ SHARED = [7, 3, 9, 2, 5, 8, 6, 4, 1, 2, 3, 4]
 def _setup(arch):
     if arch not in _SETUP:
         cfg = ARCHS[arch].smoke()
+        if cfg.family == "moe":
+            cfg = dataclasses.replace(cfg, decode_impl="decode_interpret")
         jp = init_lm(jax.random.key(0), cfg)
         tcfg = T_ARCHS[arch].smoke()
         _SETUP[arch] = (cfg, jp, tcfg, params_from_jax(
@@ -140,6 +148,14 @@ def _fabric(E, B, R, cfg, params, n, nreq, **kw):
 @pytest.mark.parametrize("arch", ["mamba2-130m", "tinyllama-1.1b"])
 @pytest.mark.parametrize("n,nreq", [(2, 6), (3, 9)])
 def test_balancer_matches_jax(arch, n, nreq):
+    _balancer_matches_jax(arch, n, nreq)
+
+
+def test_moe_balancer_matches_jax():
+    _balancer_matches_jax("moonshot-v1-16b-a3b", 2, 6)
+
+
+def _balancer_matches_jax(arch, n, nreq):
     cfg, jp, tcfg, tp = _setup(arch)
     jb, jreqs = _fabric(JEngine, JBalancer, JRequest, cfg, jp, n, nreq)
     tb, treqs = _fabric(Engine, GLBReplicaBalancer, Request, tcfg, tp, n,

@@ -56,7 +56,10 @@ def test_importing_every_module_loads_no_jax():
               "repro_torch.kernels.mamba2_ssd", "repro_torch.core.lifeline",
               "repro_torch.core.stats", "repro_torch.configs.mamba2_130m",
               "repro_torch.core.scheduler", "repro_torch.core.taskbag",
-              "repro_torch.problems.uts", "repro_torch.kernels.uts_expand"):
+              "repro_torch.problems.uts", "repro_torch.kernels.uts_expand",
+              "repro_torch.models.moe", "repro_torch.models.glb_moe",
+              "repro_torch.kernels.moe_gmm",
+              "repro_torch.configs.moonshot_v1_16b_a3b"):
         assert m in mods, m
     assert len(mods) > 20
     code = (
@@ -108,6 +111,8 @@ def test_cuda_requested_without_cuda_raises(monkeypatch):
     params = init_lm(cfg, device="cpu")
     scfg = ARCHS["mamba2-130m"].smoke()
     sparams = init_lm(scfg, device="cpu")
+    mcfg = ARCHS["moonshot-v1-16b-a3b"].smoke()
+    mparams = init_lm(mcfg, device="cpu")
     for call in (lambda: Engine(cfg, params),              # default: cuda
                  lambda: Engine(cfg, params, device="cuda"),
                  lambda: init_lm(cfg, device="cuda"),
@@ -118,6 +123,8 @@ def test_cuda_requested_without_cuda_raises(monkeypatch):
                                              for _ in range(2)]),
                  lambda: init_lm(scfg),
                  lambda: make_cache(scfg, 1, 8),
+                 lambda: Engine(mcfg, mparams),
+                 lambda: init_lm(mcfg),
                  lambda: run_sim(fib_problem(8), 2),        # default: cuda
                  lambda: run_sim(fib_problem(8), 2, device="cuda"),
                  lambda: GLB(fib_problem(8), P=2).run()):

@@ -2,7 +2,10 @@
 by ``weights.params_from_jax``.
 
 Configs: ``tinyllama-1.1b.smoke()`` and ``qwen2-1.5b.smoke()`` (QKV bias),
-and ``mamba2-130m.smoke()`` (ssm family: one Mamba2 block in each mode,
+``moonshot-v1-16b-a3b.smoke()`` (moe family; at capacity factor 8.0,
+dropless, as ``tests/test_serve_matrix.py`` serves it, and at its own 1.25,
+where the summed ``expert_counts`` and ``dropped`` must be equal too), and
+``mamba2-130m.smoke()`` (ssm family: one Mamba2 block in each mode,
 the whole model, the per-slot recurrent caches), float32. The biases,
 norm scales and Mamba2's scalars, zero or one at init, are set to random
 values so that every parameter matters. Logits of ``forward`` (train and
@@ -35,14 +38,36 @@ from repro_torch.models import make_paged_cache as t_make_paged_cache
 from repro_torch.weights import params_from_jax
 
 TOL = dict(atol=1e-4, rtol=1e-4)
-ARCH_NAMES = ["tinyllama-1.1b", "qwen2-1.5b"]
+MOE = "moonshot-v1-16b-a3b"
+ARCH_NAMES = ["tinyllama-1.1b", "qwen2-1.5b", MOE]
 _SETUP = {}
 
 
-def setup(arch):
-    """(jax cfg, torch cfg, jax params, torch params), shared per module."""
-    if arch not in _SETUP:
-        cfg = ARCHS[arch].smoke()
+def _smoke(archs, arch, factor):
+    cfg = archs[arch].smoke()
+    if cfg.family == "moe":
+        cfg = dataclasses.replace(cfg, capacity_factor=factor)
+    return cfg
+
+
+def _jax_moe_decode(cfg):
+    """The JAX config a moe parity test runs: decode attention through the
+    Pallas kernels in interpret mode. An idle slot (length 0) gets zeros
+    from the kernels, and from the port's plain versions, which follow
+    them, but uniform attention from the JAX oracle ``decode_ref``. Idle
+    slots stay in the batch and are routed, so that difference would
+    change the expert counts (and, at capacity 1.25, the drops other
+    slots see)."""
+    if cfg.family != "moe":
+        return cfg
+    return dataclasses.replace(cfg, decode_impl="decode_interpret")
+
+
+def setup(arch, factor=8.0):
+    """(jax cfg, torch cfg, jax params, torch params), shared per module.
+    MoE configs run at capacity ``factor``."""
+    if (arch, factor) not in _SETUP:
+        cfg = _smoke(ARCHS, arch, factor)
         rng = np.random.default_rng(0)
         tree = jax.tree.map(np.array, init_lm(jax.random.key(0), cfg))
         for name in ("bq", "bk", "bv"):
@@ -54,15 +79,23 @@ def setup(arch):
                           (tree, "final_ln")):
             blk[name] = rng.normal(0, 0.1, blk[name].shape).astype(
                 np.float32)
-        tcfg = T_ARCHS[arch].smoke()
+        tcfg = _smoke(T_ARCHS, arch, factor)
         assert dataclasses.asdict(tcfg) == dataclasses.asdict(cfg)
-        _SETUP[arch] = (cfg, tcfg, jax.tree.map(jnp.asarray, tree),
-                        params_from_jax(tree, tcfg, device="cpu"))
-    return _SETUP[arch]
+        cfg = _jax_moe_decode(cfg)
+        _SETUP[arch, factor] = (cfg, tcfg, jax.tree.map(jnp.asarray, tree),
+                                params_from_jax(tree, tcfg, device="cpu"))
+    return _SETUP[arch, factor]
 
 
 def _close(got, want):
     np.testing.assert_allclose(np.asarray(got), np.asarray(want), **TOL)
+
+
+def _same_aux(got, want):
+    """MoE routing statistics summed over the layers: equal."""
+    for k in ("expert_counts", "dropped"):
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]),
+                                      err_msg=k)
 
 
 def _tokens(rng, cfg, B, S):
@@ -70,26 +103,48 @@ def _tokens(rng, cfg, B, S):
 
 
 @pytest.mark.parametrize("arch", ARCH_NAMES)
-def test_forward_train_and_prefill_logits(arch):
-    cfg, tcfg, jp, tp = setup(arch)
+def test_forward_train_and_prefill_logits(arch, factor=8.0):
+    cfg, tcfg, jp, tp = setup(arch, factor)
     toks = _tokens(np.random.default_rng(1), cfg, 2, 12)
-    want, _, _ = forward(jp, cfg, tokens=jnp.asarray(toks), mode="train")
-    got, _, _ = t_forward(tp, tcfg, torch.from_numpy(toks))
+    want, _, jaux = forward(jp, cfg, tokens=jnp.asarray(toks), mode="train")
+    got, _, taux = t_forward(tp, tcfg, torch.from_numpy(toks))
     _close(got, want)
     jc = make_cache(cfg, 2, 32, dtype=jnp.float32)
-    want, jc, _ = forward(jp, cfg, tokens=jnp.asarray(toks), cache=jc,
-                          cache_len=jnp.int32(0), mode="prefill")
+    want, jc, jaux2 = forward(jp, cfg, tokens=jnp.asarray(toks), cache=jc,
+                              cache_len=jnp.int32(0), mode="prefill")
     tc = t_make_cache(tcfg, 2, 32, device="cpu")
-    got, tc, _ = t_forward(tp, tcfg, torch.from_numpy(toks), cache=tc,
-                           cache_len=0, mode="prefill")
+    got, tc, taux2 = t_forward(tp, tcfg, torch.from_numpy(toks), cache=tc,
+                               cache_len=0, mode="prefill")
     _close(got, want)
     for name in ("k", "v"):
         _close(tc[name], jc[name])
+    if cfg.family == "moe":
+        _same_aux(taux, jaux)
+        _same_aux(taux2, jaux2)
+        assert (float(jaux["dropped"]) > 0) == (factor == 1.25)
+
+
+def _decode_aux(cfg, tcfg, jp, tp, tok, jc, tc, lens, bt=None):
+    """MoE only: the summed routing statistics of one decode step from the
+    same caches (a copy of the port's, which decode_step updates in
+    place). Idle slots are in the batch and take capacity in both."""
+    if cfg.family != "moe":
+        return
+    tc = {n: t.clone() for n, t in tc.items()}
+    _, _, jaux = forward(jp, cfg, tokens=jnp.asarray(tok), cache=jc,
+                         cache_len=jnp.asarray(lens), mode="decode",
+                         block_tables=None if bt is None
+                         else jnp.asarray(bt))
+    _, _, taux = t_forward(tp, tcfg, torch.from_numpy(tok), cache=tc,
+                           cache_len=torch.from_numpy(lens), mode="decode",
+                           block_tables=None if bt is None
+                           else torch.from_numpy(bt))
+    _same_aux(taux, jaux)
 
 
 @pytest.mark.parametrize("arch", ARCH_NAMES)
-def test_decode_step_contiguous_with_idle_slot(arch):
-    cfg, tcfg, jp, tp = setup(arch)
+def test_decode_step_contiguous_with_idle_slot(arch, factor=8.0):
+    cfg, tcfg, jp, tp = setup(arch, factor)
     rng = np.random.default_rng(2)
     B, S_max = 3, 32
     jc = make_cache(cfg, B, S_max, dtype=jnp.float32)
@@ -98,6 +153,7 @@ def test_decode_step_contiguous_with_idle_slot(arch):
     tc = {n: torch.from_numpy(np.array(a)) for n, a in jc.items()}
     lens = np.asarray([5, -1, 17], np.int32)          # slot 1 idle
     tok = _tokens(rng, cfg, B, 1)
+    _decode_aux(cfg, tcfg, jp, tp, tok, jc, tc, lens)
     want, jc = decode_step(jp, cfg, jnp.asarray(tok), jc, jnp.asarray(lens))
     got, tc = t_decode_step(tp, tcfg, torch.from_numpy(tok), tc,
                             torch.from_numpy(lens))
@@ -119,8 +175,8 @@ def _paged_state(cfg, rng, NB, Bs, lens):
 
 
 @pytest.mark.parametrize("arch", ARCH_NAMES)
-def test_decode_step_paged_with_idle_slot(arch):
-    cfg, tcfg, jp, tp = setup(arch)
+def test_decode_step_paged_with_idle_slot(arch, factor=8.0):
+    cfg, tcfg, jp, tp = setup(arch, factor)
     rng = np.random.default_rng(3)
     NB, Bs, MB = 12, 8, 4
     lens = np.asarray([9, -1, 23], np.int32)
@@ -128,6 +184,7 @@ def test_decode_step_paged_with_idle_slot(arch):
     bt = np.zeros((3, MB), np.int32)
     bt[0, :2], bt[2, :3] = [7, 2], [4, 11, 0]        # scrambled tables
     tok = _tokens(rng, cfg, 3, 1)
+    _decode_aux(cfg, tcfg, jp, tp, tok, jc, tc, lens, bt)
     want, jc = decode_step(jp, cfg, jnp.asarray(tok), jc, jnp.asarray(lens),
                            block_tables=jnp.asarray(bt))
     got, tc = t_decode_step(tp, tcfg, torch.from_numpy(tok), tc,
@@ -140,8 +197,8 @@ def test_decode_step_paged_with_idle_slot(arch):
 
 
 @pytest.mark.parametrize("arch", ARCH_NAMES)
-def test_chunked_prefill_against_pool(arch):
-    cfg, tcfg, jp, tp = setup(arch)
+def test_chunked_prefill_against_pool(arch, factor=8.0):
+    cfg, tcfg, jp, tp = setup(arch, factor)
     rng = np.random.default_rng(4)
     NB, Bs, MB = 12, 8, 4
     jc, tc = _paged_state(cfg, rng, NB, Bs, [0])
@@ -149,21 +206,35 @@ def test_chunked_prefill_against_pool(arch):
     # the allocation are the out-of-range sentinel NB (dropped writes).
     bt = np.asarray([[5, 9, 1, NB]], np.int32)
     tok = _tokens(rng, cfg, 1, 7)
-    want, jc, _ = forward(jp, cfg, tokens=jnp.asarray(tok), cache=jc,
-                          cache_len=jnp.int32(11), mode="prefill",
-                          block_tables=jnp.asarray(bt))
-    got, tc, _ = t_forward(tp, tcfg, torch.from_numpy(tok), cache=tc,
-                           cache_len=11, mode="prefill",
-                           block_tables=torch.from_numpy(bt))
+    want, jc, jaux = forward(jp, cfg, tokens=jnp.asarray(tok), cache=jc,
+                             cache_len=jnp.int32(11), mode="prefill",
+                             block_tables=jnp.asarray(bt))
+    got, tc, taux = t_forward(tp, tcfg, torch.from_numpy(tok), cache=tc,
+                              cache_len=11, mode="prefill",
+                              block_tables=torch.from_numpy(bt))
     _close(got, want)
     for name in ("k", "v"):
         _close(tc[name][:, :NB], jc[name])
+    if cfg.family == "moe":
+        _same_aux(taux, jaux)
 
 
-def test_init_lm_shapes_and_distributions():
-    cfg = T_ARCHS["tinyllama-1.1b"].smoke()
+@pytest.mark.parametrize("test", [
+    test_forward_train_and_prefill_logits,
+    test_decode_step_contiguous_with_idle_slot,
+    test_decode_step_paged_with_idle_slot,
+    test_chunked_prefill_against_pool,
+], ids=lambda f: f.__name__[5:])
+def test_moe_at_its_capacity_factor(test):
+    """The MoE cases above again at the config's own capacity factor 1.25,
+    where drops happen."""
+    test(MOE, 1.25)
+
+
+def test_init_lm_shapes_and_distributions(arch="tinyllama-1.1b"):
+    cfg = T_ARCHS[arch].smoke()
     p = t_init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
-    _, _, _, tp = setup("tinyllama-1.1b")
+    _, _, _, tp = setup(arch)
     assert len(p["blocks"]) == cfg.n_layers
     for a, b in zip(jax.tree.leaves(p), jax.tree.leaves(tp)):
         assert a.shape == b.shape and a.dtype == b.dtype
@@ -171,6 +242,10 @@ def test_init_lm_shapes_and_distributions():
     std = 1 / np.sqrt(cfg.d_model)                 # truncated at +-2 std
     assert float(wq.abs().max()) <= 2 * std
     assert abs(float(wq.std()) / std - 0.88) < 0.05   # trunc-normal std
+
+
+def test_moe_init_lm_shapes():
+    test_init_lm_shapes_and_distributions(MOE)
 
 
 # ------------------------------------------------------------ ssm family
