@@ -5,14 +5,17 @@
 
 Phases, in order; any failure exits non-zero:
   1. device  — requires CUDA; prints the card's name and power limit.
-  2. build   — compiles the CUDA kernels (csrc/attention.cu, csrc/ssd.cu,
-               csrc/uts.cu, csrc/gmm.cu) with nvcc, one process per
-               source, in parallel.
+  2. build   — compiles the CUDA kernels (csrc/attention.cu,
+               csrc/attention_tc.cu, csrc/ssd.cu, csrc/uts.cu, csrc/gmm.cu)
+               with nvcc, one process per source, in parallel.
   3. kernels — each of the four attention kernels against its plain
                PyTorch version at the serving path's full-width shapes
-               (tinyllama-1.1b: 32 query heads, 4 KV heads, head dim 64)
-               in bf16 and f32, plus edge cases (idle slot, garbage table
-               entries, ragged tail, mid-block q_offset); ssd_chunked
+               (tinyllama-1.1b: 32 query heads, 4 KV heads, head dim 64;
+               for flash_attention also moonshot-v1-16b-a3b's prompt, 16/16
+               heads of 128) in bf16 and f32, plus edge cases (idle slot,
+               garbage table entries, ragged tail, mid-block q_offset);
+               flash_attention's bf16 route (tensor cores) is timed beside
+               the CUDA-core kernel it replaced for bf16; ssd_chunked
                against ssd_chunked_ref (and ssd_ref) at the mamba2-130m
                prefill shape, plus edge cases (f32 x, two rows, T shorter
                than the chunk, a ragged T that must raise). Times each
@@ -22,13 +25,16 @@ Phases, in order; any failure exits non-zero:
                and issued eagerly. gmm against gmm_ref at the two shapes
                the moonshot-v1-16b-a3b MoE layer gives it (64 experts of 1
                row at decode, of 30 rows for a 256-token prefill bucket;
-               D 2048 / F 1408, and F 2048 / D 1408 for wo) and an uneven
-               case (empty groups, rows past the last group), in bf16 and
-               f32, timed beside torch.bmm on the same work.
+               D 2048 / F 1408, and F 2048 / D 1408 for wo), the compact
+               decode groups the MoE layer now gives it (10 of the 64
+               experts with one row, the rest empty) and an uneven case
+               (empty groups, rows past the last group), in bf16 and f32,
+               timed beside torch.bmm on the same work.
   3b. moe    — moonshot-v1-16b-a3b at full width (48 layers, 64 experts
                top-6, random weights made on the card from a seed, bf16,
                56 GB) serving 16 requests in the three engine modes; gmm
-               and the mode's attention kernels must launch in each. A
+               and the mode's attention kernels must launch in each (their
+               launches count beside the tinyllama runs'). A
                profile of one decode step (device busy, gmm's share), the
                share of routed slots decode drops at 8 slots, then its
                parity checks: kernel vs plain greedy tokens on the f32
@@ -112,11 +118,19 @@ REPLACES = {
     "uts_expand": "src/repro/kernels/uts_expand.py:54",
 }
 SOURCES = {name: "src/repro_torch/csrc/attention.cu" for name in REPLACES}
+# bf16, the main path's dtype, takes the tensor-core kernel; float32 stays on
+# attention.cu's CUDA-core kernel.
+SOURCES["flash_attention"] = "src/repro_torch/csrc/attention_tc.cu"
 SOURCES["ssd_chunked"] = "src/repro_torch/csrc/ssd.cu"
 SOURCES["uts_expand"] = "src/repro_torch/csrc/uts.cu"
 SOURCES["gmm"] = "src/repro_torch/csrc/gmm.cu"
 ATTENTION = ("flash_attention", "flash_decode", "paged_decode",
              "paged_prefill")
+# The kernels' names as torch.profiler records them, by family.
+ATTENTION_KERNELS = ("flash_attention_kernel", "flash_attention_tc_kernel",
+                     "flash_decode_kernel", "paged_decode_kernel",
+                     "paged_prefill_kernel")
+GMM_KERNELS = ("gmm_kernel", "gmm_tc_kernel")
 
 # Full-width serving configuration (phase 4).
 SERVE = dict(max_slots=8, max_seq=1024, pad_len=256, steps_per_sync=8)
@@ -223,9 +237,34 @@ def _tables(rng, lens, max_blocks, num_blocks, garbage=False):
     return bt
 
 
+def _cuda_core_attention(q, k, v, causal):
+    """attention.cu's CUDA-core flash_attention_kernel on q's dtype, as the
+    wrapper launched it for bf16 before the tensor-core route replaced it:
+    timed beside its successor in the same run, never called by the port."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    nsplit, bq = _build.launch_plan(Sq, Hq // Hkv, Hkv * B)
+    err = _build.lib("attention").repro_flash_attention(
+        _build.DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), B, Sq, Skv, Hq, Hkv, D, int(causal),
+        1.0 / D ** 0.5, nsplit, bq, torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "flash_attention (CUDA-core kernel)")
+    return out
+
+
+# Timed cases of phase 3 (bf16); "main" gives each kernel's summary row.
+TIMED = ("main", "moonshot")
+
+
 def kernel_cases(dtype_name: str, rng):
     """(kernel name, case label, kernel fn, plain fn, library fn or None,
-    bytes, flops) for the main-path shapes and the edge cases."""
+    replaced kernel fn or None, bytes, flops) for the main-path shapes and
+    the edge cases."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -244,25 +283,31 @@ def kernel_cases(dtype_name: str, rng):
     sdpa = F.scaled_dot_product_attention
     cases = []
 
-    # flash_attention: one prompt bucket, causal (main path), plus a
-    # ragged row count and the non-causal form.
-    for label, B, Sq, Skv, causal in (("main", 1, 256, 256, True),
-                                      ("ragged", 2, 77, 77, True),
-                                      ("noncausal", 1, 40, 96, False)):
-        q, k, v = rnd(B, Sq, Hq, D), rnd(B, Skv, Hkv, D), rnd(B, Skv, Hkv, D)
-        vis = sum(min(Skv, i + Skv - Sq + 1) if causal else Skv
+    # flash_attention: one prompt bucket, causal (main path; tinyllama's
+    # heads, and moonshot-v1-16b-a3b's 16/16 heads of 128), plus a ragged
+    # row count and the non-causal form.
+    for label, B, Sq, Skv, causal, (hq, hkv, d) in (
+            ("main", 1, 256, 256, True, (Hq, Hkv, D)),
+            ("moonshot", 1, 256, 256, True, (16, 16, 128)),
+            ("ragged", 2, 77, 77, True, (Hq, Hkv, D)),
+            ("noncausal", 1, 40, 96, False, (Hq, Hkv, D))):
+        q, k, v = rnd(B, Sq, hq, d), rnd(B, Skv, hkv, d), rnd(B, Skv, hkv, d)
+        vis = sum(max(0, min(Skv, i + Skv - Sq + 1)) if causal else Skv
                   for i in range(Sq)) * B
         lib = (lambda q=q, k=k, v=v, c=causal: sdpa(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             is_causal=c, enable_gqa=True))
+        old = (lambda q=q, k=k, v=v, c=causal: _cuda_core_attention(
+            q, k, v, c))
         cases.append((
             "flash_attention", label,
             lambda q=q, k=k, v=v, c=causal: fa.flash_attention(
                 q, k, v, causal=c),
             lambda q=q, k=k, v=v, c=causal: fa.attention_ref(
                 q, k, v, causal=c),
-            lib if label == "main" else None,
-            (2 * q.numel() + 2 * k.numel()) * el, 4 * D * Hq * vis))
+            lib if label in TIMED else None,
+            old if label in TIMED else None,
+            (2 * q.numel() + 2 * k.numel()) * el, 4 * d * hq * vis))
 
     # flash_decode: 8 slots of a 1024-row cache, mixed lengths; edge: an
     # idle slot (length 0) that must output exact zeros.
@@ -282,7 +327,7 @@ def kernel_cases(dtype_name: str, rng):
             "flash_decode", label,
             lambda q=q, k=k, v=v, ln=ln: fd.flash_decode(q, k, v, ln),
             lambda q=q, k=k, v=v, ln=ln: fd.decode_ref(q, k, v, ln),
-            lib if label == "main" else None,
+            lib if label == "main" else None, None,
             2 * q.numel() * el + 2 * n * Hkv * D * el + 4 * B,
             4 * D * Hq * n))
 
@@ -313,7 +358,7 @@ def kernel_cases(dtype_name: str, rng):
                 q, kp, vp, bt, ln),
             lambda q=q, kp=kp, vp=vp, bt=bt, ln=ln: pd.paged_decode_ref(
                 q, kp, vp, bt, ln),
-            lib if label == "main" else None,
+            lib if label == "main" else None, None,
             2 * q.numel() * el + 2 * n * Hkv * D * el + 4 * (B + nblk),
             4 * D * Hq * n))
 
@@ -349,7 +394,7 @@ def kernel_cases(dtype_name: str, rng):
                 pd.paged_prefill(q, kp, vp, bt, ln, off),
             lambda q=q, kp=kp, vp=vp, bt=bt, ln=ln, off=off:
                 pd.paged_prefill_ref(q, kp, vp, bt, ln, off),
-            lib if label == "main" else None,
+            lib if label == "main" else None, None,
             2 * q.numel() * el + 2 * keys * Hkv * D * el
             + 4 * (3 * B + sum(-(-L // BLOCK) for L in lens)),
             4 * D * Hq * vis))
@@ -365,8 +410,8 @@ def phase_kernels():
     rng = np.random.default_rng(0)
     rows = {}
     for dtype_name in ("bfloat16", "float32"):
-        for name, label, kern, plain, lib, nbytes, flops in kernel_cases(
-                dtype_name, rng):
+        for (name, label, kern, plain, lib, old, nbytes,
+             flops) in kernel_cases(dtype_name, rng):
             got = kern()
             want = plain()
             torch.cuda.synchronize()
@@ -384,7 +429,7 @@ def phase_kernels():
             if not ok:
                 fail(f"{name}/{label}/{dtype_name} disagrees with its "
                      f"plain version: {err}")
-            if label != "main" or dtype_name != "bfloat16":
+            if label not in TIMED or dtype_name != "bfloat16":
                 continue
             bound_b = nbytes / PEAK_BYTES * 1e3
             bound_f = flops / PEAK_FLOPS[dtype_name] * 1e3
@@ -398,12 +443,21 @@ def phase_kernels():
                 bound_by="bytes" if bound_b >= bound_f else "operations",
                 library_ms=lib_ms,
             )
-            rows[name] = row
-            log(f"[kernels] {name:15s} kernel_ms {ms:.4f} plain_ms "
-                f"{plain_ms:.4f} library_ms {lib_ms:.4f} bound_ms "
+            if label == "main":
+                rows[name] = row
+            log(f"[kernels] {name:15s} {label:8s} kernel_ms {ms:.4f} "
+                f"plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} bound_ms "
                 f"{row['bound_ms']:.5f} ({row['bound_by']}: {nbytes} B, "
                 f"{flops} flop); issued eagerly: kernel {eager:.4f} "
                 f"plain {plain_eager:.4f} library {lib_eager:.4f} ms")
+            if old is not None:
+                old_err = (old().float() - want.float()).abs().max().item()
+                old_ms, old_eager = time_ms(old)
+                log(f"[kernels] {name:15s} {label:8s} the CUDA-core kernel "
+                    f"it replaced for bf16: {old_ms:.4f} ms (eagerly "
+                    f"{old_eager:.4f}), max_abs_err {old_err:.3e}; the "
+                    f"tensor-core kernel takes {ms / old_ms:.3f} of its "
+                    f"time")
     rows["ssd_chunked"] = kernel_ssd(rng)
     rows["gmm"] = kernel_gmm(rng)
     return rows
@@ -521,6 +575,9 @@ def kernel_ssd(rng):
 MOE = "moonshot-v1-16b-a3b"
 GMM_E, GMM_D, GMM_F = 64, 2048, 1408
 GMM_CAPS = {"decode": 1, "prefill": 30}
+# Experts that keep a row at decode once the MoE layer packs its capacity
+# buffer by expert (about 9.5 of 64 a layer at 8 slots with random weights).
+GMM_COMPACT = 10
 
 
 def _gmm_inputs(rng, dtype, sizes, T, D, F):
@@ -536,12 +593,15 @@ def _gmm_inputs(rng, dtype, sizes, T, D, F):
 
 def kernel_gmm(rng):
     """gmm against gmm_ref at the MoE layer's decode and prefill shapes
-    (wg / wi: D 2048 -> F 1408; wo: 1408 -> 2048) and an uneven case
-    (empty groups, a tail past the last group), bf16 and f32, under the
-    SSD check's element-wise rule. Times the bf16 shapes beside gmm_ref and
-    torch.bmm on (E, cap, D) x (E, D, F), which computes the same function
-    at equal group sizes. Returns the row of the decode shape (the one the
-    decode loop launches)."""
+    (wg / wi: D 2048 -> F 1408; wo: 1408 -> 2048), at decode's compact
+    groups (GMM_COMPACT experts of one row, the others empty, zero rows
+    after them) and an uneven case (empty groups, a tail past the last
+    group), bf16 and f32, under the SSD check's element-wise rule. Times
+    the bf16 shapes beside gmm_ref and, at equal group sizes, torch.bmm on
+    (E, cap, D) x (E, D, F), which computes the same function; no PyTorch
+    call skips the empty groups of the compact case. The bytes bound counts
+    the weights of the experts with a row only. Returns the row of the
+    decode shape in which every expert has its row."""
     import numpy as np
     import torch
 
@@ -549,15 +609,23 @@ def kernel_gmm(rng):
 
     E = GMM_E
     uneven = [int(n) for n in rng.integers(0, 41, E) * (rng.random(E) < .8)]
+    compact = [0] * E
+    for e in rng.choice(E, GMM_COMPACT, replace=False):
+        compact[int(e)] = 1
+    # (label, sizes, T, D, F, timed, rows an expert for torch.bmm or None)
     cases = []
     for label, cap in GMM_CAPS.items():
-        cases.append((label, [cap] * E, E * cap, GMM_D, GMM_F, cap))
-        cases.append((label + "-wo", [cap] * E, E * cap, GMM_F, GMM_D, cap))
-    cases.append(("uneven", uneven, sum(uneven) + 37, GMM_D, GMM_F, None))
+        cases.append((label, [cap] * E, E * cap, GMM_D, GMM_F, True, cap))
+        cases.append((label + "-wo", [cap] * E, E * cap, GMM_F, GMM_D, True,
+                      cap))
+    cases.append(("compact", compact, E, GMM_D, GMM_F, True, None))
+    cases.append(("compact-wo", compact, E, GMM_F, GMM_D, True, None))
+    cases.append(("uneven", uneven, sum(uneven) + 37, GMM_D, GMM_F, False,
+                  None))
     row = None
     for dtype_name in ("bfloat16", "float32"):
         dt = getattr(torch, dtype_name)
-        for label, sizes, T, D, F, cap in cases:
+        for label, sizes, T, D, F, timed, cap in cases:
             x, w, gs = _gmm_inputs(rng, dt, sizes, T, D, F)
             kern = lambda a=(x, w, gs): gmm(*a)
             # the plain version reads the sizes on the host: give it a host
@@ -579,24 +647,29 @@ def kernel_gmm(rng):
                 f"{'ok' if ok else 'MISMATCH'}")
             if not ok:
                 fail(f"gmm/{label}/{dtype_name} disagrees with gmm_ref: {err}")
-            if dtype_name != "bfloat16" or cap is None:
+            if dtype_name != "bfloat16" or not timed:
                 continue
             el = x.element_size()
-            nbytes = (x.numel() + w.numel()) * el + 4 * E + T * F * el
+            used = sum(1 for n in sizes if n > 0)   # experts whose w is read
+            nbytes = (x.numel() + used * D * F) * el + 4 * E + T * F * el
             flops = 2 * total * D * F        # the rows this input routes
             bound_b = nbytes / PEAK_BYTES * 1e3
             bound_f = flops / PEAK_FLOPS[dtype_name] * 1e3
             ms_k, eager = time_ms(kern)
             ms_p, plain_eager = time_ms(plain)
-            lib = lambda x=x, w=w, c=cap: torch.bmm(x.view(E, c, -1), w)
-            ms_l, lib_eager = time_ms(lib)
-            log(f"[kernels] gmm             {label:12s} kernel_ms {ms_k:.4f} "
-                f"plain_ms {ms_p:.4f} library_ms {ms_l:.4f} (torch.bmm) "
+            if cap is not None:
+                lib = lambda x=x, w=w, c=cap: torch.bmm(x.view(E, c, -1), w)
+                ms_l, lib_eager = time_ms(lib)
+                lib_note = (f"library_ms {ms_l:.4f} (torch.bmm, eagerly "
+                            f"{lib_eager:.4f})")
+            else:
+                lib_note = "library_ms none (no call skips empty groups)"
+            log(f"[kernels] gmm             {label:12s} {used} experts read: "
+                f"kernel_ms {ms_k:.4f} plain_ms {ms_p:.4f} {lib_note} "
                 f"bound_ms {max(bound_b, bound_f):.5f} ("
                 f"{'bytes' if bound_b >= bound_f else 'operations'}: "
                 f"{nbytes} B, {flops} flop); issued eagerly: kernel "
-                f"{eager:.4f} plain {plain_eager:.4f} library "
-                f"{lib_eager:.4f} ms")
+                f"{eager:.4f} plain {plain_eager:.4f} ms")
             if label == "decode":
                 row = dict(
                     name="gmm", route="cuda", source=SOURCES["gmm"],
@@ -627,7 +700,7 @@ MOE_LAYER_ABS = {"bfloat16": 2.0 ** -6, "float32": 1e-4}
 
 def phase_moe():
     """moonshot-v1-16b-a3b at full width: serve, profile, parity. Returns
-    gmm's launches over the three serving runs."""
+    each kernel's launches over the three serving runs."""
     import gc
 
     import numpy as np
@@ -651,7 +724,7 @@ def phase_moe():
         f"{cfg.param_count() / 1e9:.2f} B parameters, {cfg.dtype}: "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card, made "
         f"there in {time.time() - t0:.1f} s")
-    gmm_launches = 0
+    totals = {name: 0 for name in ops.kernel_launches()}
     for mode, kw in MODES.items():
         reqs = _requests(np.random.default_rng(1), cfg.vocab, n=MOE_N_REQ)
         eng = Engine(cfg, params, device=DEVICE, **SERVE, **kw)
@@ -678,9 +751,10 @@ def phase_moe():
         for name in ("gmm",) + MOE_MODE_KERNELS[mode]:
             if counts[name] <= 0:
                 fail(f"moe {mode}: kernel {name} was never launched")
-        gmm_launches += counts["gmm"]
+        for name, c in counts.items():
+            totals[name] += c
         del eng
-    log(f"[moe] gmm launches over the three runs: {gmm_launches}")
+    log(f"[moe] launches over the three runs: {totals}")
     _moe_profile(cfg, params)
     _moe_parity(cfg, params)
     log(f"[moe] peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
@@ -688,7 +762,7 @@ def phase_moe():
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    return gmm_launches
+    return totals
 
 
 def _moe_profile(cfg, params):
@@ -730,10 +804,10 @@ def _moe_profile(cfg, params):
         ms = e.time_range.elapsed_us() / 1e3
         busy += ms
         records += 1
-        if "gmm_kernel" in e.name:
+        if any(k in e.name for k in GMM_KERNELS):
             kern += ms
             n_gmm += 1
-        elif "decode_kernel" in e.name or "attention_kernel" in e.name:
+        elif any(k in e.name for k in ATTENTION_KERNELS):
             attn += ms
     if records == 0 or n_gmm == 0:
         fail(f"moe profile: torch.profiler recorded {records} kernels, "
@@ -743,7 +817,7 @@ def _moe_profile(cfg, params):
         f"per slot) on the host clock; profiled step {wall_prof:.2f} ms: "
         f"device busy {busy:.2f} ms = {100 * busy / wall:.1f}% of the step "
         f"({100 * busy / wall_prof:.1f}% of the profiled one) in "
-        f"{records} records; gmm_kernel {kern:.2f} ms in {n_gmm} launches "
+        f"{records} records; gmm {kern:.2f} ms in {n_gmm} launches "
         f"= {100 * kern / busy:.1f}% of the device time "
         f"({kern / n_gmm * 1e3:.1f} us each); attention kernels {attn:.2f}"
         f" ms")
@@ -1011,8 +1085,8 @@ def phase_profile(params):
         if e.device_type != DeviceType.CUDA:
             continue
         name = e.name.lower()
-        kind = ("attention kernels" if "attention_kernel" in name
-                or "decode_kernel" in name or "prefill_kernel" in name
+        kind = ("attention kernels" if any(k in name for k in
+                                           ATTENTION_KERNELS)
                 else "matmul" if any(s in name for s in (
                     "gemm", "gemv", "splitk", "nvjet", "xmma", "cutlass",
                     "cublas"))
@@ -1538,7 +1612,7 @@ def main() -> int:
     smi = timed(phase_device)
     timed(phase_build)
     rows = timed(phase_kernels)
-    gmm_launches = timed(phase_moe)
+    moe_launches = timed(phase_moe)
     params, totals, steps = timed(phase_serve)
     timed(phase_profile, params)
     mamba, ssd_launches = timed(phase_fabric)
@@ -1548,12 +1622,13 @@ def main() -> int:
     log(f"[time] all phases: {time.time() - t_start:.1f} s")
     all_steps = sum(steps.values())
     for name in ATTENTION:
-        rows[name]["launches"] = totals[name]
-        log(f"[summary] {name}: {totals[name]} launches over {all_steps} "
-            f"engine steps of the tinyllama-1.1b runs = "
-            f"{totals[name] / all_steps:.2f} per step")
-    rows["gmm"]["launches"] = gmm_launches
-    log(f"[summary] gmm: {gmm_launches} launches over the three "
+        rows[name]["launches"] = totals[name] + moe_launches[name]
+        log(f"[summary] {name}: {rows[name]['launches']} launches: "
+            f"{totals[name]} over {all_steps} engine steps of the "
+            f"tinyllama-1.1b runs ({totals[name] / all_steps:.2f} per "
+            f"step), {moe_launches[name]} over the {MOE} runs")
+    rows["gmm"]["launches"] = moe_launches["gmm"]
+    log(f"[summary] gmm: {moe_launches['gmm']} launches over the three "
         f"{MOE} runs")
     rows["ssd_chunked"]["launches"] = ssd_launches
     log(f"[summary] ssd_chunked: {ssd_launches} launches in the "

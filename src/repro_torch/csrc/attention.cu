@@ -7,6 +7,9 @@
 //
 //   flash_attention_kernel  replaces repro/kernels/flash_attention.py
 //                           flash_attention (prompt prefill, causal GQA)
+//                           for float32; bf16 prefill runs on the tensor
+//                           cores (flash_attention_tc_kernel,
+//                           attention_tc.cu)
 //   flash_decode_kernel     replaces repro/kernels/flash_decode.py
 //                           flash_decode (Sq == 1, contiguous cache)
 //   paged_decode_kernel     replaces repro/kernels/paged_decode.py
@@ -43,8 +46,8 @@
 //   * Rows of the K/V tile past the window are zero-filled, so a masked key
 //     can never turn the accumulator into NaN; a row with no visible key
 //     (idle slot, length 0) writes zeros, as the TPU kernels do.
-// Split-KV across blocks, tensor cores (wgmma), TMA and CUDA graphs are
-// later work.
+// Split-KV across blocks, tensor cores for decode, TMA and CUDA graphs
+// are later work.
 //
 // Interface: plain C functions (loaded with ctypes), each returning the
 // cudaError_t of its launch. Pointers are device pointers; the stream is a

@@ -1,10 +1,11 @@
 """Build and load the CUDA kernels of ``csrc/*.cu``.
 
-Each source (``attention.cu``, ``ssd.cu``, ``uts.cu``, ``gmm.cu``) is
-compiled by ``nvcc`` for ``sm_90a`` into a shared library of its own with
-a plain C interface (no PyTorch headers, so it builds in seconds) and
-loaded with ctypes. The builds land in ``build/repro_torch/`` at the root
-of the checkout, each named by a hash of its source and the flags, so an
+Each source (``attention.cu``, ``attention_tc.cu``, ``ssd.cu``,
+``uts.cu``, ``gmm.cu``) is compiled by ``nvcc`` for ``sm_90a`` into a
+shared library of its own with a plain C interface (no PyTorch headers, so
+it builds in seconds) and loaded with ctypes. The builds land in
+``build/repro_torch/`` at the root of the checkout, each named by a hash
+of its source, the shared headers (``csrc/*.cuh``) and the flags, so an
 edited source rebuilds its own library only and an unchanged one is
 reused. Nothing is built at import: the first launch of a kernel builds
 its library, and ``build_all`` builds every library at once, one
@@ -25,7 +26,8 @@ import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = {name: _PKG / "csrc" / f"{name}.cu"
-           for name in ("attention", "ssd", "uts", "gmm")}
+           for name in ("attention", "attention_tc", "ssd", "uts", "gmm")}
+HEADERS = sorted((_PKG / "csrc").glob("*.cuh"))
 BUILD_DIR = _PKG.parent.parent / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -51,6 +53,11 @@ SIGNATURES = {
         # max_blocks, Hq, Hkv, D, scale, nsplit, bq, stream
         "repro_paged_prefill": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                 _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    },
+    "attention_tc": {
+        # q, k, v, out, B, Sq, Skv, Hq, Hkv, D, causal, scale, stream
+        "repro_flash_attention_tc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                     _I, _F, _P],
     },
     "ssd": {
         # dtype, x, dt, A, B, C, y, h, Bt, T, H, P, N, L, stream
@@ -82,7 +89,9 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     digest = hashlib.sha256(
-        SOURCES[name].read_bytes() + " ".join(NVCC_FLAGS).encode()
+        SOURCES[name].read_bytes()
+        + b"".join(h.read_bytes() for h in HEADERS)
+        + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 

@@ -1,9 +1,12 @@
 """Causal / non-causal GQA attention: the prompt-prefill kernel.
 
-``flash_attention`` launches ``flash_attention_kernel`` of
-``csrc/attention.cu`` (it replaces the Pallas kernel
-``repro/kernels/flash_attention.py:flash_attention``); ``attention_ref``
-is its plain PyTorch version (the counterpart of
+``flash_attention`` replaces the Pallas kernel
+``repro/kernels/flash_attention.py:flash_attention`` with one kernel per
+dtype, chosen from ``q.dtype``: bfloat16 launches the tensor-core
+``flash_attention_tc_kernel`` of ``csrc/attention_tc.cu``; float32 launches
+the CUDA-core ``flash_attention_kernel`` of ``csrc/attention.cu`` (TF32
+tensor cores would not hold float32's parity). ``attention_ref`` is its
+plain PyTorch version (the counterpart of
 ``repro.kernels.ref.attention_ref``). Query ``i`` sits at absolute
 position ``Skv - Sq + i``; a row with no visible key outputs zeros, as
 the kernel does (the JAX oracle's softmax would give NaN there).
@@ -50,7 +53,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     """q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D) -> (B, Sq, Hq, D).
 
     A CPU tensor goes to ``attention_ref``; a CUDA tensor launches the
-    kernel (or raises)."""
+    kernel of its dtype (or raises)."""
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, scale=scale)
     if q.device.type != "cuda":
@@ -64,15 +67,19 @@ def flash_attention(q, k, v, *, causal: bool = True,
     code = _build.check_tensors("flash_attention", q, k, v)
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
     out = torch.empty_like(q)
-    nsplit, bq = _build.launch_plan(Sq, Hq // Hkv, Hkv * B)
-    err = _build.lib("attention").repro_flash_attention(
-        code, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, Sq, Skv, Hq, Hkv, D, int(causal), scale, nsplit, bq,
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if q.dtype == torch.bfloat16:
+        err = _build.lib("attention_tc").repro_flash_attention_tc(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, Sq, Skv, Hq, Hkv, D, int(causal), scale, stream)
+    else:
+        nsplit, bq = _build.launch_plan(Sq, Hq // Hkv, Hkv * B)
+        err = _build.lib("attention").repro_flash_attention(
+            code, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, Sq, Skv, Hq, Hkv, D, int(causal), scale, nsplit, bq, stream)
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
     return out
 
 
-flash_attention.launches = 0   # kernel launches (the CPU path never counts)
+flash_attention.launches = 0   # launches of either route (never the CPU path)

@@ -1,7 +1,10 @@
 """Grouped matrix product for MoE expert compute.
 
-``gmm`` launches ``gmm_kernel`` of ``csrc/gmm.cu`` (it replaces the Pallas
-kernel ``repro/kernels/moe_gmm.py:gmm``). The rows of x (T, D) are grouped
+``gmm`` replaces the Pallas kernel ``repro/kernels/moe_gmm.py:gmm`` with
+one kernel of ``csrc/gmm.cu`` per dtype, chosen by the C side from the
+dtype code: bfloat16 launches the tensor-core ``gmm_tc_kernel``, float32
+the CUDA-core ``gmm_kernel`` (TF32 would not hold float32's parity). An
+empty group costs no bytes: its blocks exit before reading its weights. The rows of x (T, D) are grouped
 by expert: group e is rows [offs[e], offs[e + 1]) with offs = [0,
 cumsum(group_sizes)], and ``out[i] = x[i] @ w[e]`` for its rows, with w
 (E, D, F). Products accumulate in float32 and the output is rounded once
@@ -77,4 +80,4 @@ def gmm(x, w, group_sizes):
     return out
 
 
-gmm.launches = 0   # kernel launches (the CPU path never counts)
+gmm.launches = 0   # launches of either dtype's kernel (never the CPU path)

@@ -6,11 +6,15 @@ The counterpart of ``repro.models.moe``'s global dispatch
 (``_moe_fwd_global``): routing, capacity, queue positions, drops to the
 sentinel row E, the combine and the aux outputs are JAX's, step for step.
 The three expert products, einsums over the (E, cap, D) capacity buffers
-in JAX, are grouped matrix products here: the buffers flattened to
-(E * cap, D) rows with ``group_sizes = [cap] * E`` (row i goes through
-expert i // cap), through ``kernels.ops.gmm``. Padded slots are zero rows
-and stay zero through silu(0) * 0 and the ``wo`` product, so this is the
-einsum's function.
+in JAX, are grouped matrix products here, through ``kernels.ops.gmm``: the
+capacity buffer is packed by expert, expert e's kept slots taking rows
+``offs[e] + pos`` with ``sizes[e] = min(count_e, cap)`` and ``offs`` their
+exclusive cumsum, all on the device. An expert that keeps no row has an
+empty group, whose weights the kernel never reads. The buffer keeps its
+static shape (E * cap + 1, D): the rows past ``sum(sizes)`` stay zero and
+``gmm`` writes zeros there. JAX's empty capacity slots were zero rows,
+which stay zero through silu(0) * 0 and the ``wo`` product, so every kept
+slot sees the einsum's value and this is the einsum's function.
 
 ``cfg.moe_impl``: ``auto`` and ``global`` run this dispatch with the
 ``gmm`` kernel wrapper (the kernel on a CUDA tensor, its plain version on
@@ -94,19 +98,23 @@ def moe_fwd(p, x, cfg: ModelConfig, expert_perm=None) -> Tuple[torch.Tensor,
     flat_idx = gate_idx.reshape(T * K, 1)
     onehot = torch.zeros((T * K, E), dtype=torch.int32, device=x.device)
     onehot.scatter_(1, flat_idx, 1)                               # (T*K, E)
-    counts = onehot.sum(0).float()
+    n_routed = onehot.sum(0)                                      # (E,)
+    counts = n_routed.float()
     aux_loss = E * (counts / (T * K) * probs.mean(0)).sum()
 
     # Capacity-bounded dispatch: the queue position of each routed (t, k)
     # slot within its expert, in (t, k) order over the whole batch (JAX's
     # exclusive cumsum over the (T*K, E) one-hot, read at the slot's
-    # expert). Kept slots go to row e * cap + pos of the (E * cap, D)
-    # buffer, unique; dropped ones to the sentinel row E * cap (JAX's
-    # sentinel expert E), sliced off below.
+    # expert). Expert e keeps sizes[e] = min(count_e, cap) slots, packed at
+    # rows offs[e] + pos of the (E * cap, D) buffer, unique; dropped slots
+    # go to the sentinel row E * cap (JAX's sentinel expert E), sliced off
+    # below.
     cap = capacity(T, cfg)
     pos = (torch.cumsum(onehot, 0) - onehot).gather(1, flat_idx)[:, 0]
     kept = pos < cap                                              # (T*K,)
-    dest = torch.where(kept, flat_idx[:, 0] * cap + pos, E * cap)
+    sizes = n_routed.clamp(max=cap).to(torch.int32)
+    offs = torch.cumsum(sizes, 0) - sizes
+    dest = torch.where(kept, offs[flat_idx[:, 0]] + pos, E * cap)
 
     # scatter-add each slot's token, as JAX's .at[].add (one call for the
     # K slots of every token: each kept row receives exactly one token)
@@ -115,7 +123,6 @@ def moe_fwd(p, x, cfg: ModelConfig, expert_perm=None) -> Tuple[torch.Tensor,
     # (JAX shards the buffers here with shard_act, a no-op on one device.)
 
     rows = buf[:E * cap]
-    sizes = torch.full((E,), cap, dtype=torch.int32, device=x.device)
     impl = "ref" if cfg.moe_impl == "ref" else "auto"
     mm = lambda a, w: ops.gmm(a, w, sizes, impl=impl)
     h = F.silu(mm(rows, p["wg"])) * mm(rows, p["wi"])

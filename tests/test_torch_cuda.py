@@ -17,19 +17,30 @@ may land one ulp (at most 2^-7 of the value) apart.
 
 ``uts_expand`` is held bit for bit against ``uts_expand_ref``.
 
+``flash_attention`` is held against ``attention_ref`` (float32 math, the
+output rounded once to q's dtype) by its largest absolute difference:
+2e-2 for bfloat16 (one bf16 ulp of an output |o| < 4 is at most 2^-6, and
+the tensor-core route rounds P to bf16, 2^-9 of each weight) and 1e-4 for
+float32 (summation order), the limits ``chip_smoke.py`` holds it to. Its
+cases cover head dims 16 to 128, GQA groups 1 and 8, causal and not, a
+ragged Sq, Sq < Skv and Sq > Skv (rows that see no key give zeros).
+
 ``gmm`` is held against ``gmm_ref`` under the same element-wise rule as
 ``ssd_chunked`` (both accumulate in float32, in another order; bf16
 outputs are rounded once on each side), at the two shapes the MoE layer
 of moonshot-v1-16b-a3b gives it (64 experts, 1 row each at decode and 30
 for a 256-token prefill bucket, D 2048 / F 1408, and F 2048 / D 1408 for
 ``wo``) and at edge cases: empty groups, boundaries inside a tile, T, D
-and F that fit no tile, and rows past the last group (zeros).
+and F that fit no tile, rows past the last group (zeros), the compact
+decode shape the MoE layer now gives it (about 10 of 64 experts with one
+row each, the rest empty) and grids too small to fill the card.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import _build, ops
+from repro_torch.kernels.flash_attention import attention_ref, flash_attention
 from repro_torch.kernels.mamba2_ssd import ssd_chunked, ssd_chunked_ref
 from repro_torch.kernels.moe_gmm import gmm, gmm_ref
 from repro_torch.kernels.uts_expand import uts_expand, uts_expand_ref
@@ -165,6 +176,12 @@ GMM_CASES = [
     ([70, 2, 9], 81, 16, 200),              # a group far above the mean
     ([10] * 12, 127, 300, 130),             # 16-row tiles, D, F not % 8
     ([2, 3, 0, 4], 9, 64, 520),             # 4-row tiles, a partial column
+    # compact decode: 10 of 64 experts keep one row, 54 rows of zeros
+    ([1 if e in (2, 5, 9, 17, 23, 30, 41, 47, 58, 63) else 0
+      for e in range(64)], 64, 2048, 1408),
+    ([0] * 60 + [1, 0, 0, 1], 64, 1408, 2048),  # compact decode, wo
+    ([3, 0], 8, 256, 64),                   # one column tile, 2 blocks
+    ([0, 17], 17, 96, 40),                  # one partial column tile
 ]
 
 
@@ -221,3 +238,78 @@ def test_gmm_build_failure_raises(card, tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc failed"):
         gmm(x, w, gs)
     assert ops.kernel_launches()["gmm"] == 0
+
+
+ATTN_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+
+def _attn_inputs(seed, B, Sq, Skv, Hq, Hkv, D, dtype):
+    rng = np.random.default_rng(seed)
+    f = lambda *s: torch.from_numpy(
+        rng.standard_normal(s).astype(np.float32)).to("cuda", dtype)
+    return f(B, Sq, Hq, D), f(B, Skv, Hkv, D), f(B, Skv, Hkv, D)
+
+
+def _check_attention(q, k, v, causal):
+    ops.reset_launches()
+    got = flash_attention(q, k, v, causal=causal)
+    want = attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.kernel_launches()["flash_attention"] == 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    assert torch.isfinite(got.float()).all()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= ATTN_TOL[q.dtype], err
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Skv", [
+    (2, 77, 77),          # ragged Sq, two prompts
+    (1, 40, 96),          # Sq < Skv: queries at the end of the keys
+    (1, 70, 50),          # Sq > Skv: causal rows 0-19 see no key
+])
+@pytest.mark.parametrize("group", [1, 8])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_kernel_matches_plain_version(card, dtype, causal, D,
+                                                      group, B, Sq, Skv):
+    Hkv = 2
+    q, k, v = _attn_inputs(Sq * D + group, B, Sq, Skv, group * Hkv, Hkv, D,
+                           dtype)
+    got = _check_attention(q, k, v, causal)
+    if causal and Sq > Skv:
+        assert (got[:, :Sq - Skv] == 0).all()   # no visible key: zeros
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Hq,Hkv,D", [(32, 4, 64),     # tinyllama-1.1b
+                                      (16, 16, 128)])  # moonshot-v1-16b-a3b
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_kernel_at_the_prompt_shapes(card, dtype, Hq, Hkv, D):
+    """A 256-token prompt bucket of the two served attention shapes."""
+    _check_attention(*_attn_inputs(D, 1, 256, 256, Hq, Hkv, D, dtype), True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,library", [(torch.bfloat16, "attention_tc"),
+                                           (torch.float32, "attention")])
+def test_flash_attention_routes_by_dtype(card, monkeypatch, dtype, library):
+    """bf16 launches the tensor-core kernel of attention_tc.cu, float32 the
+    CUDA-core kernel of attention.cu; either counts one launch."""
+    asked = []
+    real_lib = _build.lib
+
+    def spy(name):
+        asked.append(name)
+        return real_lib(name)
+
+    monkeypatch.setattr(_build, "lib", spy)
+    q, k, v = _attn_inputs(0, 1, 16, 16, 8, 2, 64, dtype)
+    ops.reset_launches()
+    ops.attention(q, k, v, causal=True)
+    ops.attention(q, k, v, causal=True, impl="ref")   # plain: no launch
+    torch.cuda.synchronize()
+    assert asked == [library]
+    assert ops.kernel_launches()["flash_attention"] == 1

@@ -106,6 +106,54 @@ def test_moe_fwd_with_expert_perm_matches_jax(case):
     _check(*_run_both(cfg, tcfg, jp, tp, x, perm))
 
 
+@pytest.mark.parametrize("factor,permuted", [(1.25, False), (8.0, False),
+                                              (1.25, True)])
+@pytest.mark.parametrize("case", list(CASES))
+def test_moe_fwd_passes_gmm_compact_groups(case, factor, permuted,
+                                           monkeypatch):
+    """The capacity buffer is packed by expert: the group sizes given to
+    ``ops.gmm`` are min(count, cap) per (physical) expert, they sum to the
+    kept slots, the rows past their sum are zero, and the layer still
+    computes JAX's function."""
+    from repro_torch.kernels import ops
+
+    arch, kw = CASES[case]
+    cfg, tcfg, jp, tp = _layer(arch, factor, **kw)
+    x = _x(5, (2, 16, cfg.d_model), skew=1.5 if factor == 1.25 else 0.0)
+    perm = (np.random.default_rng(6).permutation(cfg.n_experts)
+            if permuted else None)
+    calls = []
+    real_gmm = ops.gmm
+
+    def spy(rows, w, sizes, **kwargs):
+        calls.append((rows.clone(), sizes.clone()))
+        return real_gmm(rows, w, sizes, **kwargs)
+
+    monkeypatch.setattr(ops, "gmm", spy)
+    if permuted:
+        tp = dict(tp, **glb_moe.permute_expert_params(
+            {k: tp[k] for k in ("wg", "wi", "wo")},
+            np.arange(cfg.n_experts), perm))
+        jp = dict(jp, **jglb.permute_expert_params(
+            {k: jp[k] for k in ("wg", "wi", "wo")},
+            np.arange(cfg.n_experts), perm))
+    jout, tout = _run_both(cfg, tcfg, jp, tp, x, perm)
+    _check(jout, tout)
+    taux = tout[1]
+    cap = taux["capacity"]
+    counts = taux["expert_counts"].numpy().astype(np.int64)
+    kept = 2 * 16 * cfg.top_k - int(taux["dropped"])
+    assert len(calls) == 3                     # wg, wi, wo
+    for rows, sizes in calls:
+        assert sizes.dtype == torch.int32
+        np.testing.assert_array_equal(sizes.numpy(), np.minimum(counts, cap))
+        assert int(sizes.sum()) == kept
+        assert rows.shape[0] == cfg.n_experts * cap
+        assert (rows[kept:] == 0).all()
+    assert (calls[0][0][:kept].abs().sum(1) > 0).all()   # packed, no holes
+    assert kept < calls[0][0].shape[0]         # a zero tail to hold
+
+
 @pytest.mark.parametrize("T", [3, 5, 7])
 def test_capacity_rounds_half_to_even_as_jax(T):
     """T * top_k / E = T / 2 lands on a half here: Python's round (half to
