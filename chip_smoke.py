@@ -6,17 +6,19 @@
 Phases, in order; any failure exits non-zero:
   1. device  — requires CUDA; prints the card's name and power limit.
   2. build   — compiles the CUDA kernels (csrc/attention.cu,
-               csrc/attention_tc.cu, csrc/ssd.cu, csrc/uts.cu, csrc/gmm.cu)
-               with nvcc, one process per source, in parallel.
+               csrc/attention_tc.cu, csrc/decode_tc.cu, csrc/ssd.cu,
+               csrc/uts.cu, csrc/gmm.cu) with nvcc, one process per source,
+               in parallel.
   3. kernels — each of the four attention kernels against its plain
                PyTorch version at the serving path's full-width shapes
                (tinyllama-1.1b: 32 query heads, 4 KV heads, head dim 64;
-               for flash_attention also moonshot-v1-16b-a3b's prompt, 16/16
-               heads of 128) in bf16 and f32, plus edge cases (idle slot,
-               garbage table entries, ragged tail, mid-block q_offset);
-               flash_attention's bf16 route (tensor cores) is timed beside
-               the CUDA-core kernel it replaced for bf16; ssd_chunked
-               against ssd_chunked_ref (and ssd_ref) at the mamba2-130m
+               for flash_attention, flash_decode and paged_decode also
+               moonshot-v1-16b-a3b's, 16/16 heads of 128) in bf16 and f32,
+               plus edge cases (idle slot, garbage table entries, ragged
+               tail, mid-block q_offset); the bf16 kernels of
+               flash_attention, flash_decode and paged_decode are timed
+               beside the CUDA-core kernels they replaced for bf16;
+               ssd_chunked against ssd_chunked_ref (and ssd_ref) at the mamba2-130m
                prefill shape, plus edge cases (f32 x, two rows, T shorter
                than the chunk, a ragged T that must raise). Times each
                kernel, its plain version and, for attention,
@@ -118,9 +120,11 @@ REPLACES = {
     "uts_expand": "src/repro/kernels/uts_expand.py:54",
 }
 SOURCES = {name: "src/repro_torch/csrc/attention.cu" for name in REPLACES}
-# bf16, the main path's dtype, takes the tensor-core kernel; float32 stays on
-# attention.cu's CUDA-core kernel.
+# bf16, the main path's dtype, takes the tensor-core kernels; float32 stays
+# on attention.cu's CUDA-core kernels.
 SOURCES["flash_attention"] = "src/repro_torch/csrc/attention_tc.cu"
+SOURCES["flash_decode"] = "src/repro_torch/csrc/decode_tc.cu"
+SOURCES["paged_decode"] = "src/repro_torch/csrc/decode_tc.cu"
 SOURCES["ssd_chunked"] = "src/repro_torch/csrc/ssd.cu"
 SOURCES["uts_expand"] = "src/repro_torch/csrc/uts.cu"
 SOURCES["gmm"] = "src/repro_torch/csrc/gmm.cu"
@@ -128,7 +132,8 @@ ATTENTION = ("flash_attention", "flash_decode", "paged_decode",
              "paged_prefill")
 # The kernels' names as torch.profiler records them, by family.
 ATTENTION_KERNELS = ("flash_attention_kernel", "flash_attention_tc_kernel",
-                     "flash_decode_kernel", "paged_decode_kernel",
+                     "flash_decode_kernel", "flash_decode_tc_kernel",
+                     "paged_decode_kernel", "paged_decode_tc_kernel",
                      "paged_prefill_kernel")
 GMM_KERNELS = ("gmm_kernel", "gmm_tc_kernel")
 
@@ -257,6 +262,35 @@ def _cuda_core_attention(q, k, v, causal):
     return out
 
 
+def _cuda_core_decode(q, k, v, lengths, tables=None):
+    """attention.cu's CUDA-core flash_decode_kernel (or, with block
+    tables, paged_decode_kernel) on q's dtype, as the wrappers launched
+    them for bf16 before the tensor-core route replaced them: timed beside
+    their successors in the same run, never called by the port."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    B, _, Hq, D = q.shape
+    Hkv = k.shape[2]
+    out = torch.empty_like(q)
+    nsplit, _ = _build.launch_plan(1, Hq // Hkv, Hkv * B)
+    lib, st = _build.lib("attention"), torch.cuda.current_stream().cuda_stream
+    if tables is None:
+        err = lib.repro_flash_decode(
+            _build.DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), lengths.data_ptr(), B, k.shape[1], Hq, Hkv, D,
+            1.0 / D ** 0.5, nsplit, st)
+    else:
+        err = lib.repro_paged_decode(
+            _build.DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), tables.data_ptr(), lengths.data_ptr(), B,
+            k.shape[0], k.shape[1], tables.shape[1], Hq, Hkv, D,
+            1.0 / D ** 0.5, nsplit, st)
+    _build.check(err, "decode (CUDA-core kernel)")
+    return out
+
+
 # Timed cases of phase 3 (bf16); "main" gives each kernel's summary row.
 TIMED = ("main", "moonshot")
 
@@ -309,39 +343,46 @@ def kernel_cases(dtype_name: str, rng):
             old if label in TIMED else None,
             (2 * q.numel() + 2 * k.numel()) * el, 4 * d * hq * vis))
 
-    # flash_decode: 8 slots of a 1024-row cache, mixed lengths; edge: an
-    # idle slot (length 0) that must output exact zeros.
+    # flash_decode: 8 slots of a 1024-row cache, mixed lengths (tinyllama's
+    # heads, and moonshot-v1-16b-a3b's 16/16 heads of 128); edge: an idle
+    # slot (length 0) that must output exact zeros.
     S = SERVE["max_seq"]
-    for label, lens in (("main", rng.integers(100, 385, 8)),
-                        ("idle", [0, 1, 700, 1024, 0, 64, 65, 3])):
+    for label, lens, (hq, hkv, d) in (
+            ("main", rng.integers(100, 385, 8), (Hq, Hkv, D)),
+            ("moonshot", rng.integers(100, 385, 8), (16, 16, 128)),
+            ("idle", [0, 1, 700, 1024, 0, 64, 65, 3], (Hq, Hkv, D))):
         B = len(lens)
-        q, k, v = rnd(B, 1, Hq, D), rnd(B, S, Hkv, D), rnd(B, S, Hkv, D)
+        q, k, v = rnd(B, 1, hq, d), rnd(B, S, hkv, d), rnd(B, S, hkv, d)
         ln = i32(lens)
         mask = (torch.arange(S, device=dev)[None, :] < ln[:, None])
         mask = mask[:, None, None, :]
         lib = (lambda q=q, k=k, v=v, m=mask: sdpa(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             attn_mask=m, enable_gqa=True))
+        old = lambda q=q, k=k, v=v, ln=ln: _cuda_core_decode(q, k, v, ln)
         n = int(np.sum(lens))
         cases.append((
             "flash_decode", label,
             lambda q=q, k=k, v=v, ln=ln: fd.flash_decode(q, k, v, ln),
             lambda q=q, k=k, v=v, ln=ln: fd.decode_ref(q, k, v, ln),
-            lib if label == "main" else None, None,
-            2 * q.numel() * el + 2 * n * Hkv * D * el + 4 * B,
-            4 * D * Hq * n))
+            lib if label in TIMED else None,
+            old if label in TIMED else None,
+            2 * q.numel() * el + 2 * n * hkv * d * el + 4 * B,
+            4 * d * hq * n))
 
     # paged_decode: the engine's pool (8 slots x 64 blocks of 16 tokens),
-    # scrambled tables; edge: idle slot and garbage entries past each
-    # allocation.
+    # scrambled tables (tinyllama's heads and moonshot's); edge: idle slot
+    # and garbage entries past each allocation.
     MB = S // BLOCK
     NB = SERVE["max_slots"] * MB
-    for label, lens, garbage in (
-            ("main", rng.integers(100, 385, 8), False),
-            ("idle+garbage", [0, 17, 1024, 300, 0, 16, 1, 999], True)):
+    for label, lens, garbage, (hq, hkv, d) in (
+            ("main", rng.integers(100, 385, 8), False, (Hq, Hkv, D)),
+            ("moonshot", rng.integers(100, 385, 8), False, (16, 16, 128)),
+            ("idle+garbage", [0, 17, 1024, 300, 0, 16, 1, 999], True,
+             (Hq, Hkv, D))):
         B = len(lens)
-        q = rnd(B, 1, Hq, D)
-        kp, vp = rnd(NB, BLOCK, Hkv, D), rnd(NB, BLOCK, Hkv, D)
+        q = rnd(B, 1, hq, d)
+        kp, vp = rnd(NB, BLOCK, hkv, d), rnd(NB, BLOCK, hkv, d)
         bt = i32(_tables(rng, lens, MB, NB, garbage))
         ln = i32(lens)
         kg, vg = pd._gather(kp, bt, B), pd._gather(vp, bt, B)
@@ -350,6 +391,8 @@ def kernel_cases(dtype_name: str, rng):
         lib = (lambda q=q, k=kg, v=vg, m=mask: sdpa(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             attn_mask=m, enable_gqa=True))
+        old = (lambda q=q, kp=kp, vp=vp, bt=bt, ln=ln: _cuda_core_decode(
+            q, kp, vp, ln, bt))
         n = int(np.sum(lens))
         nblk = sum(-(-int(L) // BLOCK) for L in lens)
         cases.append((
@@ -358,9 +401,10 @@ def kernel_cases(dtype_name: str, rng):
                 q, kp, vp, bt, ln),
             lambda q=q, kp=kp, vp=vp, bt=bt, ln=ln: pd.paged_decode_ref(
                 q, kp, vp, bt, ln),
-            lib if label == "main" else None, None,
-            2 * q.numel() * el + 2 * n * Hkv * D * el + 4 * (B + nblk),
-            4 * D * Hq * n))
+            lib if label in TIMED else None,
+            old if label in TIMED else None,
+            2 * q.numel() * el + 2 * n * hkv * d * el + 4 * (B + nblk),
+            4 * d * hq * n))
 
     # paged_prefill: one 64-token chunk of a long prompt (main path:
     # chunked prefill with prefill_chunk=64), block-aligned offset; edges:
@@ -456,8 +500,7 @@ def phase_kernels():
                 log(f"[kernels] {name:15s} {label:8s} the CUDA-core kernel "
                     f"it replaced for bf16: {old_ms:.4f} ms (eagerly "
                     f"{old_eager:.4f}), max_abs_err {old_err:.3e}; the "
-                    f"tensor-core kernel takes {ms / old_ms:.3f} of its "
-                    f"time")
+                    f"new kernel takes {ms / old_ms:.3f} of its time")
     rows["ssd_chunked"] = kernel_ssd(rng)
     rows["gmm"] = kernel_gmm(rng)
     return rows

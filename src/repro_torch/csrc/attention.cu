@@ -12,8 +12,12 @@
 //                           attention_tc.cu)
 //   flash_decode_kernel     replaces repro/kernels/flash_decode.py
 //                           flash_decode (Sq == 1, contiguous cache)
+//                           for float32
 //   paged_decode_kernel     replaces repro/kernels/paged_decode.py
-//                           paged_decode (Sq == 1, block-table pool)
+//                           paged_decode (Sq == 1, block-table pool) for
+//                           float32; bf16 decode runs split-KV on the
+//                           tensor cores (flash_decode_tc_kernel,
+//                           paged_decode_tc_kernel, decode_tc.cu)
 //   paged_prefill_kernel    replaces repro/kernels/paged_decode.py
 //                           paged_prefill (Sq-row chunk at q_offset)
 //
@@ -46,8 +50,9 @@
 //   * Rows of the K/V tile past the window are zero-filled, so a masked key
 //     can never turn the accumulator into NaN; a row with no visible key
 //     (idle slot, length 0) writes zeros, as the TPU kernels do.
-// Split-KV across blocks, tensor cores for decode, TMA and CUDA graphs
-// are later work.
+// The bf16 routes of prefill and decode moved to the tensor cores
+// (attention_tc.cu, decode_tc.cu); these kernels keep float32, whose
+// parity checks TF32 would not hold, and paged prefill in both dtypes.
 //
 // Interface: plain C functions (loaded with ctypes), each returning the
 // cudaError_t of its launch. Pointers are device pointers; the stream is a

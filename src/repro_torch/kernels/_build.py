@@ -1,9 +1,9 @@
 """Build and load the CUDA kernels of ``csrc/*.cu``.
 
-Each source (``attention.cu``, ``attention_tc.cu``, ``ssd.cu``,
-``uts.cu``, ``gmm.cu``) is compiled by ``nvcc`` for ``sm_90a`` into a
-shared library of its own with a plain C interface (no PyTorch headers, so
-it builds in seconds) and loaded with ctypes. The builds land in
+Each source (``attention.cu``, ``attention_tc.cu``, ``decode_tc.cu``,
+``ssd.cu``, ``uts.cu``, ``gmm.cu``) is compiled by ``nvcc`` for
+``sm_90a`` into a shared library of its own with a plain C interface (no
+PyTorch headers, so it builds in seconds) and loaded with ctypes. The builds land in
 ``build/repro_torch/`` at the root of the checkout, each named by a hash
 of its source, the shared headers (``csrc/*.cuh``) and the flags, so an
 edited source rebuilds its own library only and an unchanged one is
@@ -26,7 +26,8 @@ import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = {name: _PKG / "csrc" / f"{name}.cu"
-           for name in ("attention", "attention_tc", "ssd", "uts", "gmm")}
+           for name in ("attention", "attention_tc", "decode_tc", "ssd",
+                        "uts", "gmm")}
 HEADERS = sorted((_PKG / "csrc").glob("*.cuh"))
 BUILD_DIR = _PKG.parent.parent / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -58,6 +59,15 @@ SIGNATURES = {
         # q, k, v, out, B, Sq, Skv, Hq, Hkv, D, causal, scale, stream
         "repro_flash_attention_tc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                      _I, _F, _P],
+    },
+    "decode_tc": {
+        # q, k, v, out, lengths, B, S, Hq, Hkv, D, scale, cluster, stream
+        "repro_flash_decode_tc": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                  _F, _I, _P],
+        # q, k, v, out, tables, lengths, B, NB, Bs, max_blocks, Hq, Hkv, D,
+        # scale, cluster, stream
+        "repro_paged_decode_tc": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _I, _I, _I, _F, _I, _P],
     },
     "ssd": {
         # dtype, x, dt, A, B, C, y, h, Bt, T, H, P, N, L, stream
@@ -159,10 +169,12 @@ def check(err: int, name: str) -> None:
 
 
 def launch_plan(rows: int, group: int, other_blocks: int) -> tuple:
-    """(nsplit, bq) for a grid of ceil(rows / bq) * other_blocks blocks of
-    bq * group * nsplit lanes (at most 128). Split each (row, head) pair
-    over more lanes, with fewer rows per block, until the grid holds two
-    blocks per SM of an H100 (132 SMs) or the pairs are split 32 ways."""
+    """(nsplit, bq) of the CUDA-core kernels of ``attention.cu`` (float32
+    attention and decode, and paged prefill) for a grid of ceil(rows / bq)
+    * other_blocks blocks of bq * group * nsplit lanes (at most 128).
+    Split each (row, head) pair over more lanes, with fewer rows per
+    block, until the grid holds two blocks per SM of an H100 (132 SMs) or
+    the pairs are split 32 ways."""
     if group > 128:
         raise ValueError(f"GQA group {group} > 128 is not supported")
     nsplit = 1
@@ -172,6 +184,28 @@ def launch_plan(rows: int, group: int, other_blocks: int) -> tuple:
             break
         nsplit *= 2
     return nsplit, max(1, 128 // (group * nsplit))
+
+
+MAX_CLUSTER = 8      # the portable thread-block cluster size
+DECODE_ROWS = 16     # query heads a bf16 decode block serves: the mma's M
+
+
+def decode_plan(batch: int, kv_heads: int, group: int) -> tuple:
+    """(cluster size c, grid) of the bf16 decode kernels of
+    ``decode_tc.cu``: each (slot, KV head, 16-head slice of the group) is
+    served by a cluster of c blocks that split its keys, on a grid of (c,
+    kv_heads * ceil(group / 16), batch). c is the largest power of two up
+    to 8 that keeps the grid within two blocks per SM of an H100 (132
+    SMs): one wave, since a second wave of blocks costs more than the
+    longer shares it saves. Static shapes only: the blocks size their
+    shares from the lengths on the device."""
+    if not 1 <= group <= 128:
+        raise ValueError(f"GQA group {group} is not in [1, 128]")
+    slices = kv_heads * -(-group // DECODE_ROWS)
+    c = 1
+    while c < MAX_CLUSTER and batch * slices * c * 2 <= 2 * 132:
+        c *= 2
+    return c, (c, slices, batch)
 
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # the C side's dtype codes

@@ -1,10 +1,13 @@
 """Sq == 1 attention against a contiguous padded KV cache with per-slot
 visible lengths: the contiguous engine's decode kernel.
 
-``flash_decode`` launches ``flash_decode_kernel`` of ``csrc/attention.cu``
-(it replaces the Pallas kernel ``repro/kernels/flash_decode.py:
-flash_decode``); ``decode_ref`` is its plain PyTorch version (the
-counterpart of ``repro.kernels.ref.decode_ref``). A slot with length 0
+``flash_decode`` replaces the Pallas kernel ``repro/kernels/flash_decode.py:
+flash_decode`` with one kernel per dtype, chosen from ``q.dtype``:
+bfloat16 launches the tensor-core, split-KV ``flash_decode_tc_kernel`` of
+``csrc/decode_tc.cu``; float32 launches the CUDA-core
+``flash_decode_kernel`` of ``csrc/attention.cu`` (TF32 tensor cores would
+not hold float32's parity). ``decode_ref`` is its plain PyTorch version
+(the counterpart of ``repro.kernels.ref.decode_ref``). A slot with length 0
 (idle) outputs zeros, as the kernels do; the JAX oracle returns uniform
 attention there, which callers discard either way.
 """
@@ -42,8 +45,8 @@ def flash_decode(q, k, v, lengths, *, scale: float | None = None):
     window per slot (0 => idle slot, output zeros). Returns (B, 1, Hq, D).
 
     A CPU tensor goes to ``decode_ref``; a CUDA tensor launches the kernel
-    (or raises). ``lengths`` stays on the device: the grid is sized from
-    S, never from the lengths' values."""
+    of its dtype (or raises). ``lengths`` stays on the device: the grid is
+    sized from the shapes, never from the lengths' values."""
     if q.device.type == "cpu":
         return decode_ref(q, k, v, lengths, scale=scale)
     if q.device.type != "cuda":
@@ -58,15 +61,20 @@ def flash_decode(q, k, v, lengths, *, scale: float | None = None):
     _build.check_index("flash_decode", lengths, (B,), q.device)
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
     out = torch.empty_like(q)
-    nsplit, _ = _build.launch_plan(1, Hq // Hkv, Hkv * B)
-    err = _build.lib("attention").repro_flash_decode(
-        code, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lengths.data_ptr(), B, S, Hq, Hkv, D, scale, nsplit,
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if q.dtype == torch.bfloat16:
+        cluster, _ = _build.decode_plan(B, Hkv, Hq // Hkv)
+        err = _build.lib("decode_tc").repro_flash_decode_tc(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lengths.data_ptr(), B, S, Hq, Hkv, D, scale, cluster, stream)
+    else:
+        nsplit, _ = _build.launch_plan(1, Hq // Hkv, Hkv * B)
+        err = _build.lib("attention").repro_flash_decode(
+            code, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lengths.data_ptr(), B, S, Hq, Hkv, D, scale, nsplit, stream)
     _build.check(err, "flash_decode")
     flash_decode.launches += 1
     return out
 
 
-flash_decode.launches = 0   # kernel launches (the CPU path never counts)
+flash_decode.launches = 0   # launches of either route (never the CPU path)

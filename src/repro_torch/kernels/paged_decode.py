@@ -2,11 +2,14 @@
 decode kernel (Sq == 1) and chunked-prefill kernel (Sq rows at
 ``q_offset``).
 
-``paged_decode`` / ``paged_prefill`` launch ``paged_decode_kernel`` /
-``paged_prefill_kernel`` of ``csrc/attention.cu`` (they replace the Pallas
-kernels ``repro/kernels/paged_decode.py:paged_decode`` and
-``:paged_prefill``); ``paged_decode_ref`` / ``paged_prefill_ref`` are their
-plain PyTorch versions (counterparts of ``repro.kernels.ref``'s oracles).
+``paged_decode`` and ``paged_prefill`` replace the Pallas kernels
+``repro/kernels/paged_decode.py:paged_decode`` and ``:paged_prefill``.
+``paged_decode`` picks its kernel from ``q.dtype``: bfloat16 launches the
+tensor-core, split-KV ``paged_decode_tc_kernel`` of ``csrc/decode_tc.cu``,
+float32 the CUDA-core ``paged_decode_kernel`` of ``csrc/attention.cu``;
+``paged_prefill`` launches ``paged_prefill_kernel`` of ``attention.cu``
+for both. ``paged_decode_ref`` / ``paged_prefill_ref`` are their plain
+PyTorch versions (counterparts of ``repro.kernels.ref``'s oracles).
 Table entries past a sequence's allocation may be garbage: they are
 clamped into the pool and masked by the window.
 """
@@ -83,7 +86,7 @@ def paged_decode(q, k_pool, v_pool, block_tables, lengths, *,
     output zeros). Returns (B, 1, Hq, D).
 
     A CPU tensor goes to ``paged_decode_ref``; a CUDA tensor launches the
-    kernel (or raises)."""
+    kernel of its dtype (or raises)."""
     if q.device.type == "cpu":
         return paged_decode_ref(q, k_pool, v_pool, block_tables, lengths,
                                 scale=scale)
@@ -97,13 +100,20 @@ def paged_decode(q, k_pool, v_pool, block_tables, lengths, *,
     NB, Bs, Hkv, _ = k_pool.shape
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
     out = torch.empty_like(q)
-    nsplit, _ = _build.launch_plan(1, Hq // Hkv, Hkv * B)
-    err = _build.lib("attention").repro_paged_decode(
-        code, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        out.data_ptr(), block_tables.data_ptr(), lengths.data_ptr(), B, NB,
-        Bs, block_tables.shape[1], Hq, Hkv, D, scale, nsplit,
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if q.dtype == torch.bfloat16:
+        cluster, _ = _build.decode_plan(B, Hkv, Hq // Hkv)
+        err = _build.lib("decode_tc").repro_paged_decode_tc(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            out.data_ptr(), block_tables.data_ptr(), lengths.data_ptr(), B,
+            NB, Bs, block_tables.shape[1], Hq, Hkv, D, scale, cluster,
+            stream)
+    else:
+        nsplit, _ = _build.launch_plan(1, Hq // Hkv, Hkv * B)
+        err = _build.lib("attention").repro_paged_decode(
+            code, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            out.data_ptr(), block_tables.data_ptr(), lengths.data_ptr(), B,
+            NB, Bs, block_tables.shape[1], Hq, Hkv, D, scale, nsplit, stream)
     _build.check(err, "paged_decode")
     paged_decode.launches += 1
     return out
@@ -143,5 +153,5 @@ def paged_prefill(q, k_pool, v_pool, block_tables, lengths, q_offset, *,
     return out
 
 
-paged_decode.launches = 0    # kernel launches (the CPU path never counts)
+paged_decode.launches = 0    # launches of either route (never the CPU path)
 paged_prefill.launches = 0

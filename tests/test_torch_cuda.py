@@ -34,6 +34,18 @@ for a 256-token prefill bucket, D 2048 / F 1408, and F 2048 / D 1408 for
 and F that fit no tile, rows past the last group (zeros), the compact
 decode shape the MoE layer now gives it (about 10 of 64 experts with one
 row each, the rest empty) and grids too small to fill the card.
+
+``flash_decode`` and ``paged_decode`` are held against ``decode_ref`` /
+``paged_decode_ref`` under ``flash_attention``'s limits (the bf16 route
+rounds P to bf16 once on the tensor cores, as ``flash_attention``'s does;
+a group of one is scored on the CUDA cores with P in float32), at GQA
+groups 1, 4, 6 and 8 (the served models') and head dims 64 and 128, in
+both dtypes, with lengths at the edges of the bf16 kernel's split (idle,
+one key, either side of a share step and of a full tile per block, the
+whole cache, past it), garbage and negative table entries, and exact
+zeros for the idle slot; then small head dims and groups above 16 heads,
+replay from a CUDA graph with new lengths, the route each dtype takes,
+one launch per call, and a build failure that raises.
 """
 import numpy as np
 import pytest
@@ -41,8 +53,10 @@ import torch
 
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+from repro_torch.kernels.flash_decode import decode_ref, flash_decode
 from repro_torch.kernels.mamba2_ssd import ssd_chunked, ssd_chunked_ref
 from repro_torch.kernels.moe_gmm import gmm, gmm_ref
+from repro_torch.kernels.paged_decode import paged_decode, paged_decode_ref
 from repro_torch.kernels.uts_expand import uts_expand, uts_expand_ref
 from repro_torch.problems.uts import geom_thresholds
 
@@ -313,3 +327,155 @@ def test_flash_attention_routes_by_dtype(card, monkeypatch, dtype, library):
     torch.cuda.synchronize()
     assert asked == [library]
     assert ops.kernel_launches()["flash_attention"] == 1
+
+
+# ------------------------------------------------------------ decode
+# KV heads of the served decode shapes, by GQA group: moonshot-v1-16b-a3b
+# (1), phi3.5-moe (4), qwen2-1.5b (6), tinyllama-1.1b (8); each at head
+# dims 64 and 128. Other groups take one KV head.
+DECODE_HEADS = {1: 16, 4: 8, 6: 2, 8: 4}
+DECODE_S, DECODE_BS = 1024, 16
+
+
+def _decode_lengths(Hkv, group):
+    """Per-slot lengths that hit the bf16 kernel's edges: idle, one key,
+    either side of the first 16-key share step and of one full 64-key
+    tile per block of the cluster, the whole cache, and past it."""
+    c, _ = _build.decode_plan(8, Hkv, group)
+    return [0, 1, 16 * c - 1, 16 * c + 1, 64 * c - 1, 64 * c + 1,
+            DECODE_S, DECODE_S + 300]
+
+
+def _decode_case(seed, group, D, dtype, paged):
+    """q and either a contiguous cache or pools with scrambled tables whose
+    entries past each allocation are garbage (some negative, some past
+    the pool)."""
+    Hkv = DECODE_HEADS.get(group, 1)
+    lens = _decode_lengths(Hkv, group)
+    rng = np.random.default_rng(seed)
+    f = lambda *s: torch.from_numpy(
+        rng.standard_normal(s).astype(np.float32)).to("cuda", dtype)
+    i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32), device="cuda")
+    q = f(len(lens), 1, group * Hkv, D)
+    if not paged:
+        return q, f(len(lens), DECODE_S, Hkv, D), \
+            f(len(lens), DECODE_S, Hkv, D), i32(lens)
+    MB = DECODE_S // DECODE_BS
+    NB = len(lens) * MB
+    perm = list(rng.permutation(NB))
+    bt = rng.integers(-5, 3 * NB, (len(lens), MB)).astype(np.int32)
+    for b, L in enumerate(lens):
+        n = -(-min(L, DECODE_S) // DECODE_BS)
+        bt[b, :n] = [perm.pop() for _ in range(n)]
+    return (q, f(NB, DECODE_BS, Hkv, D), f(NB, DECODE_BS, Hkv, D), i32(bt),
+            i32(lens))
+
+
+def _check_decode(args, paged):
+    fn, ref_fn = ((paged_decode, paged_decode_ref) if paged
+                  else (flash_decode, decode_ref))
+    name = fn.__name__
+    ops.reset_launches()
+    got = fn(*args)
+    want = ref_fn(*args)
+    torch.cuda.synchronize()
+    q = args[0]
+    assert ops.kernel_launches()[name] == 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    assert torch.isfinite(got.float()).all()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= ATTN_TOL[q.dtype], err
+    assert (got[0] == 0).all()              # idle slot: exact zeros
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("group", [1, 4, 6, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_kernels_match_plain_versions(card, dtype, group, D, paged):
+    _check_decode(_decode_case(group * D + paged, group, D, dtype, paged),
+                  paged)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("group,D", [(2, 16), (24, 32), (128, 64)])
+def test_decode_kernels_at_other_groups_and_head_dims(card, group, D,
+                                                      paged):
+    """Small head dims, and groups above 16 heads, which take more than
+    one 16-row slice of the grid (the last one partly used); one KV
+    head."""
+    _check_decode(_decode_case(group + D, group, D, torch.bfloat16, paged),
+                  paged)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True])
+def test_decode_kernels_replay_in_a_cuda_graph(card, paged):
+    """A captured launch replays with new lengths: the shares follow the
+    device's lengths, with nothing kept between launches."""
+    args = _decode_case(3, 8, 64, torch.bfloat16, paged)
+    fn, ref_fn = ((paged_decode, paged_decode_ref) if paged
+                  else (flash_decode, decode_ref))
+    fn(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = fn(*args)
+    lengths = args[-1]
+    for lens in ([5, 0, 300, 17, 1024, 64, 65, 2],
+                 [0, 0, 0, 0, 0, 0, 0, 1]):
+        lengths.copy_(torch.as_tensor(lens, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        err = (got.float() - ref_fn(*args).float()).abs().max().item()
+        assert err <= ATTN_TOL[torch.bfloat16], err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("dtype,library", [(torch.bfloat16, "decode_tc"),
+                                           (torch.float32, "attention")])
+def test_decode_routes_by_dtype(card, monkeypatch, dtype, library, paged):
+    """bf16 launches the tensor-core kernel of decode_tc.cu, float32 the
+    CUDA-core kernel of attention.cu; either counts one launch, the plain
+    version none."""
+    asked = []
+    real_lib = _build.lib
+
+    def spy(name):
+        asked.append(name)
+        return real_lib(name)
+
+    monkeypatch.setattr(_build, "lib", spy)
+    args = _decode_case(1, 8, 64, dtype, paged)
+    q, k, v, *rest = args
+    lengths, tables = rest[-1], (rest[0] if paged else None)
+    ops.reset_launches()
+    ops.attention(q, k, v, lengths=lengths, block_tables=tables)
+    ops.attention(q, k, v, lengths=lengths, block_tables=tables,
+                  impl="paged_ref" if paged else "decode_ref")
+    torch.cuda.synchronize()
+    assert asked == [library]
+    counts = ops.kernel_launches()
+    assert counts["paged_decode" if paged else "flash_decode"] == 1
+    assert sum(counts.values()) == 1
+
+
+@pytest.mark.cuda
+def test_decode_tc_build_failure_raises(card, tmp_path, monkeypatch):
+    """A source that does not compile raises from the first launch; there
+    is no fallback to the plain version or the CUDA-core kernel."""
+    bad = tmp_path / "decode_tc.cu"
+    bad.write_text("this is not CUDA\n")
+    monkeypatch.setattr(_build, "SOURCES", dict(_build.SOURCES,
+                                                decode_tc=bad))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_libs", {})
+    q, k, v, lengths = _decode_case(0, 8, 64, torch.bfloat16, False)
+    ops.reset_launches()
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        flash_decode(q, k, v, lengths)
+    assert ops.kernel_launches()["flash_decode"] == 0
