@@ -12,12 +12,13 @@ Phases, in order; any failure exits non-zero:
   3. kernels — each of the four attention kernels against its plain
                PyTorch version at the serving path's full-width shapes
                (tinyllama-1.1b: 32 query heads, 4 KV heads, head dim 64;
-               for flash_attention, flash_decode and paged_decode also
-               moonshot-v1-16b-a3b's, 16/16 heads of 128) in bf16 and f32,
+               for each also moonshot-v1-16b-a3b's, 16/16 heads of 128)
+               in bf16 and f32,
                plus edge cases (idle slot, garbage table entries, ragged
-               tail, mid-block q_offset); the bf16 kernels of
-               flash_attention, flash_decode and paged_decode are timed
-               beside the CUDA-core kernels they replaced for bf16;
+               tail, mid-block q_offset, a sequence of length 0); the
+               bf16 kernels of the four are timed beside the CUDA-core
+               kernels they replaced for bf16 (paged_prefill at
+               tinyllama's 64-token chunk and at moonshot's);
                ssd_chunked against ssd_chunked_ref (and ssd_ref) at the mamba2-130m
                prefill shape, plus edge cases (f32 x, two rows, T shorter
                than the chunk, a ragged T that must raise). Times each
@@ -62,7 +63,9 @@ Phases, in order; any failure exits non-zero:
                prefill under torch.profiler: ssd_chunked's share of it.
   6. glb     — the GLB task executor. uts_expand against uts_expand_ref,
                bit for bit, at the UTS path's shape (1024 nodes x 256
-               lanes) and edge shapes, timed like the kernels above. Then
+               lanes) and edge shapes (odd widths, a threshold table that
+               is not non-increasing), timed like the kernels above beside
+               the first version of its kernel. Then
                the paper's UTS (geometric tree, b0 4, r 19; depth 12, one
                below the paper's smallest, so that the run stays near a
                minute) on 1024 places with n 256, w 2, steal_k 64: the
@@ -125,6 +128,7 @@ SOURCES = {name: "src/repro_torch/csrc/attention.cu" for name in REPLACES}
 SOURCES["flash_attention"] = "src/repro_torch/csrc/attention_tc.cu"
 SOURCES["flash_decode"] = "src/repro_torch/csrc/decode_tc.cu"
 SOURCES["paged_decode"] = "src/repro_torch/csrc/decode_tc.cu"
+SOURCES["paged_prefill"] = "src/repro_torch/csrc/attention_tc.cu"
 SOURCES["ssd_chunked"] = "src/repro_torch/csrc/ssd.cu"
 SOURCES["uts_expand"] = "src/repro_torch/csrc/uts.cu"
 SOURCES["gmm"] = "src/repro_torch/csrc/gmm.cu"
@@ -134,7 +138,7 @@ ATTENTION = ("flash_attention", "flash_decode", "paged_decode",
 ATTENTION_KERNELS = ("flash_attention_kernel", "flash_attention_tc_kernel",
                      "flash_decode_kernel", "flash_decode_tc_kernel",
                      "paged_decode_kernel", "paged_decode_tc_kernel",
-                     "paged_prefill_kernel")
+                     "paged_prefill_kernel", "paged_prefill_tc_kernel")
 GMM_KERNELS = ("gmm_kernel", "gmm_tc_kernel")
 
 # Full-width serving configuration (phase 4).
@@ -291,6 +295,28 @@ def _cuda_core_decode(q, k, v, lengths, tables=None):
     return out
 
 
+def _cuda_core_prefill(q, kp, vp, tables, lengths, offsets):
+    """attention.cu's CUDA-core paged_prefill_kernel on q's dtype, as the
+    wrapper launched it for bf16 before the tensor-core route replaced it:
+    timed beside its successor in the same run, never called by the port."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    B, Sq, Hq, D = q.shape
+    Hkv = kp.shape[2]
+    out = torch.empty_like(q)
+    nsplit, bq = _build.launch_plan(Sq, Hq // Hkv, Hkv * B)
+    err = _build.lib("attention").repro_paged_prefill(
+        _build.DTYPES[q.dtype], q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+        out.data_ptr(), tables.data_ptr(), lengths.data_ptr(),
+        offsets.data_ptr(), B, Sq, kp.shape[0], kp.shape[1], tables.shape[1],
+        Hq, Hkv, D, 1.0 / D ** 0.5, nsplit, bq,
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "paged_prefill (CUDA-core kernel)")
+    return out
+
+
 # Timed cases of phase 3 (bf16); "main" gives each kernel's summary row.
 TIMED = ("main", "moonshot")
 
@@ -407,18 +433,22 @@ def kernel_cases(dtype_name: str, rng):
             4 * d * hq * n))
 
     # paged_prefill: one 64-token chunk of a long prompt (main path:
-    # chunked prefill with prefill_chunk=64), block-aligned offset; edges:
-    # mid-block offset, a one-token chunk, a padded tail (window shorter
-    # than the chunk), garbage entries.
-    for label, offs, Sq, tail, garbage in (
-            ("main", [128], CHUNK, 0, False),
-            ("midblock", [37, 200], 50, 0, False),
-            ("one-token", [300, 5], 1, 0, True),
-            ("padded-tail", [16, 90], 24, 9, True)):
+    # chunked prefill with prefill_chunk=64), block-aligned offset
+    # (tinyllama's heads, and moonshot-v1-16b-a3b's 16/16 heads of 128);
+    # edges: mid-block offset, a one-token chunk, a padded tail (window
+    # shorter than the chunk), garbage entries, and a sequence of length 0
+    # whose rows see no key (exact zeros).
+    for label, offs, Sq, tails, garbage, (hq, hkv, d) in (
+            ("main", [128], CHUNK, [0], False, (Hq, Hkv, D)),
+            ("moonshot", [128], CHUNK, [0], False, (16, 16, 128)),
+            ("midblock", [37, 200], 50, [0, 0], False, (Hq, Hkv, D)),
+            ("one-token", [300, 5], 1, [0, 0], True, (Hq, Hkv, D)),
+            ("padded-tail", [16, 90], 24, [9, 9], True, (Hq, Hkv, D)),
+            ("idle-seq", [0, 40], 24, [24, 0], True, (Hq, Hkv, D))):
         B = len(offs)
-        lens = [o + Sq - tail for o in offs]
-        q = rnd(B, Sq, Hq, D)
-        kp, vp = rnd(NB, BLOCK, Hkv, D), rnd(NB, BLOCK, Hkv, D)
+        lens = [o + Sq - t for o, t in zip(offs, tails)]
+        q = rnd(B, Sq, hq, d)
+        kp, vp = rnd(NB, BLOCK, hkv, d), rnd(NB, BLOCK, hkv, d)
         bt = i32(_tables(rng, lens, MB, NB, garbage))
         ln, off = i32(lens), i32(offs)
         kg, vg = pd._gather(kp, bt, B), pd._gather(vp, bt, B)
@@ -429,6 +459,8 @@ def kernel_cases(dtype_name: str, rng):
         lib = (lambda q=q, k=kg, v=vg, m=mask: sdpa(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             attn_mask=m, enable_gqa=True))
+        old = (lambda q=q, kp=kp, vp=vp, bt=bt, ln=ln, off=off:
+               _cuda_core_prefill(q, kp, vp, bt, ln, off))
         vis = sum(max(0, min(L, o + i + 1)) for o, L in zip(offs, lens)
                   for i in range(Sq))
         keys = sum(lens)
@@ -438,10 +470,11 @@ def kernel_cases(dtype_name: str, rng):
                 pd.paged_prefill(q, kp, vp, bt, ln, off),
             lambda q=q, kp=kp, vp=vp, bt=bt, ln=ln, off=off:
                 pd.paged_prefill_ref(q, kp, vp, bt, ln, off),
-            lib if label == "main" else None, None,
-            2 * q.numel() * el + 2 * keys * Hkv * D * el
+            lib if label in TIMED else None,
+            old if label in TIMED else None,
+            2 * q.numel() * el + 2 * keys * hkv * d * el
             + 4 * (3 * B + sum(-(-L // BLOCK) for L in lens)),
-            4 * D * Hq * vis))
+            4 * d * hq * vis))
     return cases
 
 
@@ -463,10 +496,11 @@ def phase_kernels():
                 fail(f"{name}/{label}/{dtype_name}: non-finite output")
             err = (got.float() - want.float()).abs().max().item()
             ok = err <= TOL[dtype_name]
-            if label in ("idle", "idle+garbage"):
+            if label in ("idle", "idle+garbage", "idle-seq"):
                 # idle slots (length 0) must be exact zeros
                 idle = got.float().reshape(got.shape[0], -1).abs().amax(1)
-                ok = ok and bool((idle[[0, 4]] == 0).all())
+                slots = [0] if name == "paged_prefill" else [0, 4]
+                ok = ok and bool((idle[slots] == 0).all())
             log(f"[kernels] {name:15s} {label:12s} {dtype_name:8s} "
                 f"max_abs_err {err:.3e} (tol {TOL[dtype_name]:g}) "
                 f"{'ok' if ok else 'MISMATCH'}")
@@ -1294,9 +1328,10 @@ UTS_OPS_PER_LANE = 95
 PROFILE_STEPS = (200, 203)    # supersteps of the UTS run under the profiler
 
 
-def _uts_inputs(rng, M, base_lo, base_hi):
+def _uts_inputs(rng, M, base_lo, base_hi, shuffle=False):
     """Descriptors with the high bit set (uint32 bits in int32), bases in
-    [base_lo, base_hi), the thresholds of the b0 = 4 tree."""
+    [base_lo, base_hi), the thresholds of the b0 = 4 tree (with shuffle,
+    in random order: a table that is not non-increasing)."""
     import numpy as np
     import torch
 
@@ -1307,26 +1342,33 @@ def _uts_inputs(rng, M, base_lo, base_hi):
         .astype(np.uint32).view(np.int32)).to(DEVICE)
     base = torch.from_numpy(
         rng.integers(base_lo, base_hi, M).astype(np.int32)).to(DEVICE)
-    thr = torch.from_numpy(geom_thresholds(4.0).view(np.int32)).to(DEVICE)
+    thr = geom_thresholds(4.0)
+    if shuffle:
+        thr = rng.permutation(thr)
+    thr = torch.from_numpy(thr.view(np.int32)).to(DEVICE)
     return bits(), bits(), base, thr
 
 
 def kernel_uts(rng):
     """uts_expand against uts_expand_ref, bit for bit, at the main shape
-    and the edge cases; times the main shape. Returns its row."""
+    and the edge cases (the first version of its kernel too, at the main
+    shape); times the main shape beside that first version. Returns its
+    row."""
     import torch
 
-    from repro_torch.kernels.uts_expand import uts_expand, uts_expand_ref
+    from repro_torch.kernels import uts_expand as ue
 
     M, W = UTS_MAIN["M"], UTS_MAIN["W"]
-    cases = (("main", M, W, 0, 32), ("M=1", 1, 8, 0, 32),
-             ("ragged-M", 1000, 64, 0, 32),
-             ("base~2^31", 77, 256, 2 ** 31 - 288, 2 ** 31 - 256))
+    cases = (("main", M, W, 0, 32, False), ("M=1", 1, 8, 0, 32, False),
+             ("ragged-M", 1000, 64, 0, 32, False),
+             ("base~2^31", 77, 256, 2 ** 31 - 288, 2 ** 31 - 256, False),
+             ("odd-W", 333, 37, 0, 32, False), ("W=3", 50, 3, 0, 32, False),
+             ("unsorted", M, W, 0, 32, True))
     row = None
-    for label, m, w, lo, hi in cases:
-        args = _uts_inputs(rng, m, lo, hi)
-        kern = lambda a=args, w=w: uts_expand(*a, width=w)
-        plain = lambda a=args, w=w: uts_expand_ref(*a, w)
+    for label, m, w, lo, hi, shuffle in cases:
+        args = _uts_inputs(rng, m, lo, hi, shuffle)
+        kern = lambda a=args, w=w: ue.uts_expand(*a, width=w)
+        plain = lambda a=args, w=w: ue.uts_expand_ref(*a, w)
         got, want = kern(), plain()
         torch.cuda.synchronize()
         same = all(torch.equal(g, x) for g, x in zip(got, want))
@@ -1342,6 +1384,16 @@ def kernel_uts(rng):
         bound_o = ops / PEAK_FLOPS["int32"] * 1e3
         ms_k, eager = time_ms(kern)
         ms_p, plain_eager = time_ms(plain)
+        # the first version of the kernel (one thread a lane), replaced
+        old = lambda a=args, w=w: ue._launch("repro_uts_expand_lane", *a, w)
+        old_same = all(torch.equal(g, x) for g, x in zip(old(), want))
+        old_ms, old_eager = time_ms(old)
+        log(f"[glb] uts_expand      the first version of its kernel "
+            f"(uts_expand_lane_kernel): {old_ms:.4f} ms (eagerly "
+            f"{old_eager:.4f}), {'bit-exact' if old_same else 'MISMATCH'}; "
+            f"the new kernel takes {ms_k / old_ms:.3f} of its time")
+        if not old_same:
+            fail("uts_expand_lane_kernel differs from uts_expand_ref")
         row = dict(
             name="uts_expand", route="cuda", source=SOURCES["uts_expand"],
             replaces=REPLACES["uts_expand"], launches=0, max_abs_err=max(

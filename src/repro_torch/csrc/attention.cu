@@ -19,7 +19,10 @@
 //                           tensor cores (flash_decode_tc_kernel,
 //                           paged_decode_tc_kernel, decode_tc.cu)
 //   paged_prefill_kernel    replaces repro/kernels/paged_decode.py
-//                           paged_prefill (Sq-row chunk at q_offset)
+//                           paged_prefill (Sq-row chunk at q_offset) for
+//                           float32; bf16 chunked prefill runs on the
+//                           tensor cores (paged_prefill_tc_kernel,
+//                           attention_tc.cu)
 //
 // What bounds them on an H100. Decode (Sq == 1) reads every visible K/V
 // row once and does 4*D flops per row and query head: at GQA group 8 that
@@ -50,9 +53,10 @@
 //   * Rows of the K/V tile past the window are zero-filled, so a masked key
 //     can never turn the accumulator into NaN; a row with no visible key
 //     (idle slot, length 0) writes zeros, as the TPU kernels do.
-// The bf16 routes of prefill and decode moved to the tensor cores
-// (attention_tc.cu, decode_tc.cu); these kernels keep float32, whose
-// parity checks TF32 would not hold, and paged prefill in both dtypes.
+// The bf16 routes moved to the tensor cores (attention_tc.cu,
+// decode_tc.cu); these kernels keep float32, whose parity checks TF32
+// would not hold. The bf16 instantiations stay, to be timed beside their
+// successors.
 //
 // Interface: plain C functions (loaded with ctypes), each returning the
 // cudaError_t of its launch. Pointers are device pointers; the stream is a

@@ -59,6 +59,10 @@ SIGNATURES = {
         # q, k, v, out, B, Sq, Skv, Hq, Hkv, D, causal, scale, stream
         "repro_flash_attention_tc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                      _I, _F, _P],
+        # q, k, v, out, tables, lengths, q_offset, B, Sq, NB, Bs,
+        # max_blocks, Hq, Hkv, D, scale, cluster, stream
+        "repro_paged_prefill_tc": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                   _I, _I, _I, _I, _I, _F, _I, _P],
     },
     "decode_tc": {
         # q, k, v, out, lengths, B, S, Hq, Hkv, D, scale, cluster, stream
@@ -77,6 +81,7 @@ SIGNATURES = {
     "uts": {
         # d0, d1, base, thresholds, cd0, cd1, m, M, W, stream
         "repro_uts_expand": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+        "repro_uts_expand_lane": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     },
     "gmm": {
         # dtype, x, w, group_sizes, out, T, D, F, E, stream
@@ -170,7 +175,7 @@ def check(err: int, name: str) -> None:
 
 def launch_plan(rows: int, group: int, other_blocks: int) -> tuple:
     """(nsplit, bq) of the CUDA-core kernels of ``attention.cu`` (float32
-    attention and decode, and paged prefill) for a grid of ceil(rows / bq)
+    attention, decode and paged prefill) for a grid of ceil(rows / bq)
     * other_blocks blocks of bq * group * nsplit lanes (at most 128).
     Split each (row, head) pair over more lanes, with fewer rows per
     block, until the grid holds two blocks per SM of an H100 (132 SMs) or
@@ -206,6 +211,31 @@ def decode_plan(batch: int, kv_heads: int, group: int) -> tuple:
     while c < MAX_CLUSTER and batch * slices * c * 2 <= 2 * 132:
         c *= 2
     return c, (c, slices, batch)
+
+
+PREFILL_ROWS = 64    # (query row, head) pairs a bf16 prefill block serves
+PREFILL_CLUSTER = 4  # the cluster of a bf16 prefill grid that is split
+PREFILL_SPLIT_BLOCKS = 16   # ... when the grid has at most this many tiles
+
+
+def prefill_plan(batch: int, kv_heads: int, group: int, rows: int) -> tuple:
+    """(cluster size c, grid) of the bf16 ``paged_prefill_tc_kernel`` of
+    ``attention_tc.cu``: each (tile of 64 (query row, head) pairs, KV
+    head, sequence) is served by a cluster of c blocks that split its
+    keys, on a grid of (c * ceil(rows * group / 64), kv_heads, batch).
+    c is ``PREFILL_CLUSTER`` when there are at most
+    ``PREFILL_SPLIT_BLOCKS`` tiles (an eighth of an H100's 132 SMs), else
+    1: on the card (``tools/prefill_ab.py``) moonshot-v1-16b-a3b's
+    64-token chunk (16 tiles of D 128) ran fastest in clusters of 4 and
+    tinyllama-1.1b's (32 tiles of D 64) unsplit, the cluster merge costing
+    more than its shorter walks saved. Static shapes only: the blocks size
+    their shares from the offsets and lengths on the device."""
+    if group < 1 or rows < 1:
+        raise ValueError(f"prefill_plan: group {group}, rows {rows}")
+    tiles = -(-rows * group // PREFILL_ROWS)
+    blocks = batch * kv_heads * tiles
+    c = PREFILL_CLUSTER if blocks <= PREFILL_SPLIT_BLOCKS else 1
+    return c, (c * tiles, kv_heads, batch)
 
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # the C side's dtype codes

@@ -7,8 +7,11 @@ decode kernel (Sq == 1) and chunked-prefill kernel (Sq rows at
 ``paged_decode`` picks its kernel from ``q.dtype``: bfloat16 launches the
 tensor-core, split-KV ``paged_decode_tc_kernel`` of ``csrc/decode_tc.cu``,
 float32 the CUDA-core ``paged_decode_kernel`` of ``csrc/attention.cu``;
-``paged_prefill`` launches ``paged_prefill_kernel`` of ``attention.cu``
-for both. ``paged_decode_ref`` / ``paged_prefill_ref`` are their plain
+``paged_prefill`` likewise launches, for bfloat16, the tensor-core
+``paged_prefill_tc_kernel`` of ``csrc/attention_tc.cu`` (its grid and
+cluster from ``_build.prefill_plan``) and, for float32, the CUDA-core
+``paged_prefill_kernel`` of ``attention.cu``. ``paged_decode_ref`` /
+``paged_prefill_ref`` are their plain
 PyTorch versions (counterparts of ``repro.kernels.ref``'s oracles).
 Table entries past a sequence's allocation may be garbage: they are
 clamped into the pool and masked by the window.
@@ -127,7 +130,7 @@ def paged_prefill(q, k_pool, v_pool, block_tables, lengths, q_offset, *,
     length``. Returns (B, Sq, Hq, D).
 
     A CPU tensor goes to ``paged_prefill_ref``; a CUDA tensor launches the
-    kernel (or raises)."""
+    kernel of its dtype (or raises)."""
     if q.device.type == "cpu":
         return paged_prefill_ref(q, k_pool, v_pool, block_tables, lengths,
                                  q_offset, scale=scale)
@@ -140,14 +143,21 @@ def paged_prefill(q, k_pool, v_pool, block_tables, lengths, q_offset, *,
     NB, Bs, Hkv, _ = k_pool.shape
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
     out = torch.empty_like(q)
-    nsplit, bq = _build.launch_plan(Sq, Hq // Hkv, Hkv * B)
-    err = _build.lib("attention").repro_paged_prefill(
-        code, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        out.data_ptr(), block_tables.data_ptr(), lengths.data_ptr(),
-        q_offset.data_ptr(), B, Sq, NB, Bs, block_tables.shape[1], Hq, Hkv,
-        D, scale, nsplit, bq,
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if q.dtype == torch.bfloat16:
+        cluster, _ = _build.prefill_plan(B, Hkv, Hq // Hkv, Sq)
+        err = _build.lib("attention_tc").repro_paged_prefill_tc(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            out.data_ptr(), block_tables.data_ptr(), lengths.data_ptr(),
+            q_offset.data_ptr(), B, Sq, NB, Bs, block_tables.shape[1], Hq,
+            Hkv, D, scale, cluster, stream)
+    else:
+        nsplit, bq = _build.launch_plan(Sq, Hq // Hkv, Hkv * B)
+        err = _build.lib("attention").repro_paged_prefill(
+            code, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            out.data_ptr(), block_tables.data_ptr(), lengths.data_ptr(),
+            q_offset.data_ptr(), B, Sq, NB, Bs, block_tables.shape[1], Hq,
+            Hkv, D, scale, nsplit, bq, stream)
     _build.check(err, "paged_prefill")
     paged_prefill.launches += 1
     return out

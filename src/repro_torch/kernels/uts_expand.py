@@ -1,7 +1,10 @@
 """UTS node expansion: the hot loop of the paper's ``process(n)`` (§2.5.2).
 
 ``uts_expand`` launches ``uts_expand_kernel`` of ``csrc/uts.cu`` (it
-replaces the Pallas kernel ``repro/kernels/uts_expand.py:uts_expand``).
+replaces the Pallas kernel ``repro/kernels/uts_expand.py:uts_expand``;
+``_launch`` also reaches the first version of that kernel,
+``uts_expand_lane_kernel``, which only the card tests and
+``chip_smoke.py`` call, to hold the two against each other).
 For M nodes and ``width`` consecutive child indices base + lane it hashes
 each child's descriptor with three rounds of the 32-bit finalizer
 ``fmix32`` and samples its geometric child count as the number of the 32
@@ -81,14 +84,10 @@ def uts_expand_ref(d0, d1, base, thresholds, width: int):
     return narrow(h0), narrow(h1), child_count_t(h0, widen(thresholds))
 
 
-def uts_expand(d0, d1, base, thresholds, *, width: int = 64):
-    """Expand M nodes x ``width`` child lanes (arguments as
-    ``uts_expand_ref``). A CPU tensor goes to ``uts_expand_ref``; a CUDA
-    tensor launches the kernel (or raises). Any M >= 1 is taken."""
-    if d0.device.type == "cpu":
-        return uts_expand_ref(d0, d1, base, thresholds, width)
-    if d0.device.type != "cuda":
-        raise ValueError(f"uts_expand: unsupported device {d0.device}")
+def _launch(entry: str, d0, d1, base, thresholds, width: int):
+    """Check the CUDA arguments and launch ``entry`` of the ``uts``
+    library (``repro_uts_expand`` or ``repro_uts_expand_lane``) into new
+    outputs; returns (cd0, cd1, m). Counts nothing."""
     M = d0.shape[0] if d0.dim() == 1 else -1
     for name, t, shape in (("d0", d0, (M,)), ("d1", d1, (M,)),
                            ("base", base, (M,)),
@@ -102,16 +101,30 @@ def uts_expand(d0, d1, base, thresholds, *, width: int = 64):
     if M < 1 or width < 1 or M * width >= 2 ** 31:
         raise ValueError(f"uts_expand: M={M} x width={width} must be "
                          "in [1, 2^31)")
+    # one allocation: each output starts 8-byte aligned when the width is
+    # even, as the kernel's 8-byte stores need
     out = torch.empty((3, M, width), dtype=torch.int32, device=d0.device)
     cd0, cd1, m = out.unbind(0)
-    err = _build.lib("uts").repro_uts_expand(
+    err = getattr(_build.lib("uts"), entry)(
         d0.data_ptr(), d1.data_ptr(), base.data_ptr(),
         thresholds.data_ptr(), cd0.data_ptr(), cd1.data_ptr(), m.data_ptr(),
         M, width, torch.cuda.current_stream(d0.device).cuda_stream,
     )
     _build.check(err, "uts_expand")
-    uts_expand.launches += 1
     return cd0, cd1, m
+
+
+def uts_expand(d0, d1, base, thresholds, *, width: int = 64):
+    """Expand M nodes x ``width`` child lanes (arguments as
+    ``uts_expand_ref``). A CPU tensor goes to ``uts_expand_ref``; a CUDA
+    tensor launches the kernel (or raises). Any M >= 1 is taken."""
+    if d0.device.type == "cpu":
+        return uts_expand_ref(d0, d1, base, thresholds, width)
+    if d0.device.type != "cuda":
+        raise ValueError(f"uts_expand: unsupported device {d0.device}")
+    out = _launch("repro_uts_expand", d0, d1, base, thresholds, width)
+    uts_expand.launches += 1
+    return out
 
 
 uts_expand.launches = 0   # kernel launches (the CPU path never counts)

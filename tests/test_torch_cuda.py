@@ -15,7 +15,11 @@ float32 summation order; rel is 0 for float32 outputs and 2^-6 for
 bfloat16 y, two bf16 ulps, since both sides round once from float32 and
 may land one ulp (at most 2^-7 of the value) apart.
 
-``uts_expand`` is held bit for bit against ``uts_expand_ref``.
+``uts_expand`` is held bit for bit against ``uts_expand_ref`` and against
+the first version of its kernel (``uts_expand_lane_kernel``), at widths
+that take the compiled-in and the run-time width, full and partial
+vector stores, a threshold table that is not non-increasing (counted by
+the 32 compares) and bases near 2^31.
 
 ``flash_attention`` is held against ``attention_ref`` (float32 math, the
 output rounded once to q's dtype) by its largest absolute difference:
@@ -46,6 +50,17 @@ whole cache, past it), garbage and negative table entries, and exact
 zeros for the idle slot; then small head dims and groups above 16 heads,
 replay from a CUDA graph with new lengths, the route each dtype takes,
 one launch per call, and a build failure that raises.
+
+``paged_prefill`` is held against ``paged_prefill_ref`` under the same
+limits (the bf16 route rounds P to bf16 once on the tensor cores), at GQA
+groups 1, 4 and 8, head dims 64 and 128, both dtypes and chunks of 1, 24,
+50, 64 and 200 rows, each chunk in five sequences: from position 0, at a
+mid-block offset, at a block-aligned one, with a padded tail (rows past
+the window, which see the whole window), and of length 0 (exact zeros);
+the tables hold garbage past each allocation. Then every cluster size
+the bf16 kernel takes, replay from a CUDA graph with new offsets and
+lengths, the route each dtype takes, one launch per call, and a build
+failure that raises.
 """
 import numpy as np
 import pytest
@@ -56,7 +71,10 @@ from repro_torch.kernels.flash_attention import attention_ref, flash_attention
 from repro_torch.kernels.flash_decode import decode_ref, flash_decode
 from repro_torch.kernels.mamba2_ssd import ssd_chunked, ssd_chunked_ref
 from repro_torch.kernels.moe_gmm import gmm, gmm_ref
-from repro_torch.kernels.paged_decode import paged_decode, paged_decode_ref
+from repro_torch.kernels.paged_decode import (paged_decode, paged_decode_ref,
+                                              paged_prefill,
+                                              paged_prefill_ref)
+from repro_torch.kernels.uts_expand import _launch as uts_launch
 from repro_torch.kernels.uts_expand import uts_expand, uts_expand_ref
 from repro_torch.problems.uts import geom_thresholds
 
@@ -125,17 +143,38 @@ def test_ssd_kernel_rejects_what_it_does_not_take(card):
         ssd_chunked(x, dt, A, B, strided, chunk=8)
 
 
-def _uts_inputs(seed, M, base_lo, base_hi):
+def _uts_inputs(seed, M, base_lo, base_hi, thresholds=None):
     """Descriptors with the high bit set (uint32 bits in int32), bases in
-    [base_lo, base_hi), the thresholds of the paper's b0 = 4 tree."""
+    [base_lo, base_hi), the thresholds of the paper's b0 = 4 tree (or the
+    uint32 table given)."""
     rng = np.random.default_rng(seed)
     bits = lambda: torch.from_numpy(
         (rng.integers(0, 2 ** 31, M, dtype=np.int64) | 2 ** 31)
         .astype(np.uint32).view(np.int32)).cuda()
     base = torch.from_numpy(
         rng.integers(base_lo, base_hi, M).astype(np.int32)).cuda()
-    thr = torch.from_numpy(geom_thresholds(4.0).view(np.int32)).cuda()
+    if thresholds is None:
+        thresholds = geom_thresholds(4.0)
+    thr = torch.from_numpy(thresholds.view(np.int32)).cuda()
     return bits(), bits(), base, thr
+
+
+def _check_uts(args, width):
+    """The kernel once (one launch), bit for bit against the plain version
+    and the first version of the kernel; returns its outputs."""
+    M = args[0].shape[0]
+    ops.reset_launches()
+    got = uts_expand(*args, width=width)
+    want = uts_expand_ref(*args, width)
+    first = uts_launch("repro_uts_expand_lane", *args, width)
+    torch.cuda.synchronize()
+    assert ops.kernel_launches()["uts_expand"] == 1
+    for g, w, f in zip(got, want, first):
+        assert g.dtype == torch.int32 and g.shape == (M, width)
+        assert torch.equal(g, w)
+        assert torch.equal(f, w)
+    assert int(got[2].min()) >= 0 and int(got[2].max()) <= 32
+    return got
 
 
 @pytest.mark.cuda
@@ -144,19 +183,27 @@ def _uts_inputs(seed, M, base_lo, base_hi):
     (1, 8, 32),
     (1000, 64, 32),           # M not a multiple of 128
     (77, 256, 2 ** 31 - 256),  # base + lane up to 2^31 - 1
+    (300, 1, 32),             # widths at run time: one scalar lane,
+    (301, 3, 32),             # three, a 16-byte row,
+    (129, 8, 32),
+    (97, 100, 2 ** 31 - 100),  # and 25 vector stores a row near 2^31
 ])
 def test_uts_expand_kernel_is_bit_exact(card, M, width, base_hi):
-    d0, d1, base, thr = _uts_inputs(M + width, M, max(0, base_hi - 32),
-                                    base_hi)
-    ops.reset_launches()
-    got = uts_expand(d0, d1, base, thr, width=width)
-    want = uts_expand_ref(d0, d1, base, thr, width)
-    torch.cuda.synchronize()
-    assert ops.kernel_launches()["uts_expand"] == 1
-    for g, w in zip(got, want):
-        assert g.dtype == torch.int32 and g.shape == (M, width)
-        assert torch.equal(g, w)
-    assert int(got[2].min()) >= 0 and int(got[2].max()) <= 32
+    _check_uts(_uts_inputs(M + width, M, max(0, base_hi - 32), base_hi),
+               width)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [1, 3, 8, 64, 100, 256])
+def test_uts_expand_kernel_counts_an_unsorted_table(card, width):
+    """A table that is not non-increasing fails the kernel's vote and is
+    counted by the 32 compares: still bit-exact, counts past the sorted
+    table's prefix included."""
+    rng = np.random.default_rng(width)
+    table = rng.permutation(geom_thresholds(4.0))
+    got = _check_uts(_uts_inputs(width, 513, 2 ** 31 - 300, 2 ** 31 - 256,
+                                 table), width)
+    assert int(got[2].max()) > 0
 
 
 @pytest.mark.cuda
@@ -479,3 +526,141 @@ def test_decode_tc_build_failure_raises(card, tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc failed"):
         flash_decode(q, k, v, lengths)
     assert ops.kernel_launches()["flash_decode"] == 0
+
+
+# ------------------------------------------------------------ prefill
+# KV heads of the served chunk shapes, by GQA group: moonshot-v1-16b-a3b
+# (1), phi3.5-moe (4), tinyllama-1.1b (8). Other groups take two.
+PREFILL_HEADS = {1: 16, 4: 8, 8: 4}
+PREFILL_OFFSETS = (0, 37, 128, 300, 0)
+
+
+def _prefill_case(seed, group, D, dtype, Sq):
+    """q, pools, garbage-tailed scrambled tables, lengths and offsets of
+    five sequences: from 0, at a mid-block offset, at a block-aligned one,
+    with a padded tail of Sq // 3 + 1 rows, and of length 0."""
+    Hkv = PREFILL_HEADS.get(group, 2)
+    offs = list(PREFILL_OFFSETS)
+    lens = [o + Sq for o in offs]
+    lens[3] -= Sq // 3 + 1
+    lens[4] = 0
+    rng = np.random.default_rng(seed)
+    f = lambda *s: torch.from_numpy(
+        rng.standard_normal(s).astype(np.float32)).to("cuda", dtype)
+    i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32), device="cuda")
+    B = len(offs)
+    MB = DECODE_S // DECODE_BS
+    NB = B * MB
+    perm = list(rng.permutation(NB))
+    bt = rng.integers(-5, 3 * NB, (B, MB)).astype(np.int32)
+    for b, L in enumerate(lens):
+        n = -(-max(L, 0) // DECODE_BS)
+        bt[b, :n] = [perm.pop() for _ in range(n)]
+    return (f(B, Sq, group * Hkv, D), f(NB, DECODE_BS, Hkv, D),
+            f(NB, DECODE_BS, Hkv, D), i32(bt), i32(lens), i32(offs))
+
+
+def _check_prefill(args):
+    ops.reset_launches()
+    got = paged_prefill(*args)
+    want = paged_prefill_ref(*args)
+    torch.cuda.synchronize()
+    q = args[0]
+    assert ops.kernel_launches()["paged_prefill"] == 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    assert torch.isfinite(got.float()).all()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= ATTN_TOL[q.dtype], err
+    assert (got[4] == 0).all()              # length 0: exact zeros
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq", [1, 24, 50, 64, 200])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("group", [1, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_prefill_kernels_match_plain_version(card, dtype, group, D,
+                                                   Sq):
+    _check_prefill(_prefill_case(group * D + Sq, group, D, dtype, Sq))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("group,D,Sq", [(8, 64, 64), (1, 128, 64),
+                                        (4, 16, 50), (2, 32, 200)])
+def test_paged_prefill_at_every_cluster_size(card, monkeypatch, cluster,
+                                             group, D, Sq):
+    """The bf16 kernel's key split over clusters of 1 to 8 blocks (shares
+    that are empty, partial and full), at small head dims too."""
+    plan = _build.prefill_plan
+    monkeypatch.setattr(_build, "prefill_plan", lambda *a: (
+        cluster, plan(*a)[1]))
+    _check_prefill(_prefill_case(cluster + D, group, D, torch.bfloat16, Sq))
+
+
+@pytest.mark.cuda
+def test_paged_prefill_replays_in_a_cuda_graph(card):
+    """A captured launch replays with new offsets and lengths: the blocks
+    read them on the device, with nothing kept between launches."""
+    args = _prefill_case(5, 8, 64, torch.bfloat16, 64)
+    paged_prefill(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = paged_prefill(*args)
+    lengths, offsets = args[-2], args[-1]
+    for offs, lens in (([64, 0, 500, 17, 3], [128, 10, 564, 70, 0]),
+                       ([0, 0, 0, 0, 0], [0, 0, 0, 0, 0])):
+        offsets.copy_(torch.as_tensor(offs, dtype=torch.int32))
+        lengths.copy_(torch.as_tensor(lens, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        err = (got.float() - paged_prefill_ref(*args).float()).abs().max()
+        assert err.item() <= ATTN_TOL[torch.bfloat16], err
+    assert (got == 0).all()                 # every length 0: zeros
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,library", [(torch.bfloat16, "attention_tc"),
+                                           (torch.float32, "attention")])
+def test_paged_prefill_routes_by_dtype(card, monkeypatch, dtype, library):
+    """bf16 launches the tensor-core kernel of attention_tc.cu, float32 the
+    CUDA-core kernel of attention.cu; either counts one launch, the plain
+    version none."""
+    asked = []
+    real_lib = _build.lib
+
+    def spy(name):
+        asked.append(name)
+        return real_lib(name)
+
+    monkeypatch.setattr(_build, "lib", spy)
+    q, kp, vp, bt, lengths, offsets = _prefill_case(2, 8, 64, dtype, 24)
+    ops.reset_launches()
+    ops.attention(q, kp, vp, lengths=lengths, block_tables=bt,
+                  q_offset=offsets)
+    ops.attention(q, kp, vp, lengths=lengths, block_tables=bt,
+                  q_offset=offsets, impl="paged_ref")
+    torch.cuda.synchronize()
+    assert asked == [library]
+    counts = ops.kernel_launches()
+    assert counts["paged_prefill"] == 1
+    assert sum(counts.values()) == 1
+
+
+@pytest.mark.cuda
+def test_attention_tc_build_failure_raises(card, tmp_path, monkeypatch):
+    """A source that does not compile raises from the first launch; there
+    is no fallback to the plain version or the CUDA-core kernel."""
+    bad = tmp_path / "attention_tc.cu"
+    bad.write_text("this is not CUDA\n")
+    monkeypatch.setattr(_build, "SOURCES", dict(_build.SOURCES,
+                                                attention_tc=bad))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_libs", {})
+    args = _prefill_case(0, 8, 64, torch.bfloat16, 24)
+    ops.reset_launches()
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        paged_prefill(*args)
+    assert ops.kernel_launches()["paged_prefill"] == 0

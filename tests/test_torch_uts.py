@@ -129,3 +129,73 @@ def test_bfs_count_in_small_chunks():
     for chunk in (1, 7, 1000):
         assert uts.uts_count_bfs(b0=3.0, depth=7, seed=5,
                                  chunk=chunk) == want
+
+
+# ------------------------------------------ the kernel's count, in numpy
+# csrc/uts.cu counts #{k : h0 < T_k} by a binary search when a warp's vote
+# finds the table non-increasing. These model its steps (uint32 in numpy)
+# and hold them to the 32 compares the plain version makes.
+B0S = (3.0, 4.0)     # the trees the problems, tests and chip_smoke.py run
+
+
+def _vote(table):
+    """The kernel's vote: lane k holds T_k and votes T_k >= T_{k+1}."""
+    return bool(np.all(table[:-1] >= table[1:]))
+
+
+def _search(h0, table):
+    """Five halving steps reach min(count, 31), each reading T at the
+    guess (a shuffle in the kernel); one compare against T at the result
+    tells 31 from 32."""
+    c = np.zeros(h0.shape, np.int64)
+    for s in (16, 8, 4, 2, 1):
+        c += np.where(h0 < table[c + s - 1], s, 0)
+    return c + (h0 < table[c])
+
+
+def _probes(table, rng):
+    """h0 at 0, 2^32 - 1, each T_k - 1 and T_k (wrapped into uint32), and
+    random values."""
+    edges = np.concatenate([table.astype(np.int64) - 1, table]) % 2 ** 32
+    return np.concatenate([[0, 2 ** 32 - 1], edges,
+                           rng.integers(0, 2 ** 32, 100_000)]).astype(
+        np.uint32)
+
+
+@pytest.mark.parametrize("b0", B0S + (1.0, 6.0))
+def test_geom_thresholds_are_non_increasing(b0):
+    table = uts.geom_thresholds(b0)
+    assert table.dtype == np.uint32 and table.shape == (32,)
+    assert _vote(table)
+    np.testing.assert_array_equal(table, juts.geom_thresholds(b0))
+
+
+@pytest.mark.parametrize("b0", B0S + (1.0, 6.0, 1e6))
+def test_search_model_equals_the_32_compares(b0):
+    """At every edge of the table and at random h0, for the problems'
+    tables, one whose T_k are all large (counts of 31 and 32) and ones with
+    ties (T_k == T_{k+1}, zeros at the end)."""
+    rng = np.random.default_rng(int(b0))
+    tables = [uts.geom_thresholds(b0)]
+    tied = np.sort(rng.integers(0, 2 ** 32, 32, dtype=np.uint64))[::-1]
+    tied[10:14] = tied[10]
+    tied[-5:] = 0
+    tables.append(tied.astype(np.uint32))
+    for table in tables:
+        assert _vote(table)
+        h0 = _probes(table, rng)
+        want = (h0[:, None] < table[None, :]).sum(-1)
+        np.testing.assert_array_equal(_search(h0, table), want)
+        np.testing.assert_array_equal(
+            uts.child_count(h0, table, np), want.astype(np.int32))
+
+
+def test_an_unsorted_table_fails_the_vote():
+    """The search would miscount a table out of order; the vote sends such
+    a table to the 32 compares."""
+    rng = np.random.default_rng(1)
+    table = rng.permutation(uts.geom_thresholds(4.0))
+    assert not _vote(table)
+    h0 = _probes(table, rng)
+    want = (h0[:, None] < table[None, :]).sum(-1)
+    assert (_search(h0, table) != want).any()
