@@ -19,9 +19,13 @@ Phases, in order; any failure exits non-zero:
                bf16 kernels of the four are timed beside the CUDA-core
                kernels they replaced for bf16 (paged_prefill at
                tinyllama's 64-token chunk and at moonshot's);
-               ssd_chunked against ssd_chunked_ref (and ssd_ref) at the mamba2-130m
-               prefill shape, plus edge cases (f32 x, two rows, T shorter
-               than the chunk, a ragged T that must raise). Times each
+               ssd_chunked against ssd_chunked_ref (and ssd_ref) at the
+               mamba2-130m prefill shape and its 1024-token bucket (16
+               chunks), in bf16 and f32 x, plus edge cases (two rows, T
+               shorter than the chunk, chunk 16 at N 256, two rows of 512,
+               a ragged T that must raise), each with its launch plan,
+               timed at both buckets beside the first version of its
+               kernel (ssd_chunked_loop_kernel). Times each
                kernel, its plain version and, for attention,
                scaled_dot_product_attention on the same work (a yardstick
                only: the port never calls it), replayed from a CUDA graph
@@ -541,8 +545,10 @@ def phase_kernels():
 
 
 # The mamba2-130m prefill: one 256-token bucket, 24 heads of 64, state
-# 128, chunks of 64 (the chunk mamba_fwd asks for).
+# 128, chunks of 64 (the chunk mamba_fwd asks for); and the 1024-token
+# bucket a prompt of 769-1024 tokens takes at max_seq 1024 (16 chunks).
 SSD_MAIN = dict(Bt=1, T=256, H=24, P=64, N=128)
+SSD_LONG = dict(SSD_MAIN, T=1024)
 SSD_CHUNK = 64
 
 
@@ -568,29 +574,68 @@ def _ssd_err(got, want, rel):
     return err.max().item(), (err / limit).max().item()
 
 
+def _ssd_bounds(args, y, h, chunk):
+    """(bytes, f32 flops, bytes bound ms, ops bound ms, which ops bound):
+    each input read once, y and h written once; the causal half of C B^T
+    (L(L+1)/2 entries) once per chunk (one B/C group), then per head and
+    chunk the masked product with dt x (lower triangle), C h_in and the
+    state update. The operations bound is the lower of those flops at the
+    CUDA cores' f32 rate and, as the kernel computes them, three bf16
+    passes (bf16x3) at the tensor cores' rate."""
+    x = args[0]
+    Bt, T, H, P = x.shape
+    N = args[3].shape[-1]
+    L = min(chunk, T)
+    nck = T // L
+    nbytes = sum(t.numel() * t.element_size() for t in (*args, y, h))
+    flops = (2 * Bt * nck * (L * (L + 1) // 2) * N
+             + Bt * H * nck * (L * (L + 1) * P + 4 * L * N * P))
+    f32 = flops / PEAK_FLOPS["float32"] * 1e3
+    tc3 = 3 * flops / PEAK_FLOPS["bfloat16"] * 1e3
+    return (nbytes, flops, nbytes / PEAK_BYTES * 1e3, min(f32, tc3),
+            "bf16x3 at the bf16 rate" if tc3 < f32 else "f32")
+
+
 def kernel_ssd(rng):
-    """ssd_chunked against ssd_chunked_ref at the main shape and the edge
-    cases (and against the sequential ssd_ref at the main shape); times
-    the main shape. Returns its row of the summary."""
+    """ssd_chunked against ssd_chunked_ref at the main shape, the 1024-token
+    bucket and the edge cases (and against the sequential ssd_ref at the
+    main shape), in both dtypes of x; logs each case's launch plan; times
+    both buckets beside the first version of the kernel
+    (ssd_chunked_loop_kernel). Returns the main shape's row of the
+    summary."""
     import torch
 
+    from repro_torch.kernels import _build
     from repro_torch.kernels import mamba2_ssd as ms
 
-    cases = (("main", "bfloat16", SSD_MAIN),
-             ("f32-x", "float32", SSD_MAIN),
-             ("two-rows", "bfloat16", dict(SSD_MAIN, Bt=2, T=128)),
-             ("short-T", "bfloat16", dict(SSD_MAIN, T=24)),
-             ("short-T", "float32", dict(SSD_MAIN, T=24)))
+    cases = (("main", "bfloat16", SSD_MAIN, SSD_CHUNK),
+             ("f32-x", "float32", SSD_MAIN, SSD_CHUNK),
+             ("two-rows", "bfloat16", dict(SSD_MAIN, Bt=2, T=128), SSD_CHUNK),
+             ("short-T", "bfloat16", dict(SSD_MAIN, T=24), SSD_CHUNK),
+             ("short-T", "float32", dict(SSD_MAIN, T=24), SSD_CHUNK),
+             ("T1024", "bfloat16", SSD_LONG, SSD_CHUNK),
+             ("T1024", "float32", SSD_LONG, SSD_CHUNK),
+             ("chunk16-N256", "bfloat16", dict(SSD_MAIN, N=256), 16),
+             ("chunk16-N256", "float32", dict(SSD_MAIN, N=256), 16),
+             ("two-rows-512", "bfloat16", dict(SSD_MAIN, Bt=2, T=512),
+              SSD_CHUNK))
     row = None
-    for label, dtype_name, shp in cases:
+    for label, dtype_name, shp, chunk in cases:
         args = _ssd_inputs(rng, getattr(torch, dtype_name), **shp)
-        kern = lambda a=args: ms.ssd_chunked(*a, chunk=SSD_CHUNK)
-        plain = lambda a=args: ms.ssd_chunked_ref(*a, chunk=SSD_CHUNK)
+        kern = lambda a=args, c=chunk: ms.ssd_chunked(*a, chunk=c)
+        plain = lambda a=args, c=chunk: ms.ssd_chunked_ref(*a, chunk=c)
         (y, h), (yr, hr) = kern(), plain()
         wants = [("ssd_chunked_ref", yr, hr)]
         if label == "main":
             wants.append(("ssd_ref", *ms.ssd_ref(*args)))
         torch.cuda.synchronize()
+        Bt, T, H, P, N = (shp[k] for k in ("Bt", "T", "H", "P", "N"))
+        L = min(chunk, T)
+        c, pt, per, grid = _build.ssd_plan(Bt, T, H, P, N, L)
+        log(f"[kernels] ssd_chunked     {label:12s} {dtype_name:8s} x "
+            f"({Bt}, {T}, {H}, {P}) N {N} chunk {L}: plan c {c}, pt {pt}, "
+            f"up to {per} chunks a block, grid {grid} = "
+            f"{grid[0] * grid[1] * grid[2]} blocks")
         if not (torch.isfinite(y.float()).all() and torch.isfinite(h).all()):
             fail(f"ssd_chunked/{label}/{dtype_name}: non-finite output")
         for ref_name, yw, hw in wants:
@@ -605,35 +650,47 @@ def kernel_ssd(rng):
             if not ok:
                 fail(f"ssd_chunked/{label}/{dtype_name} disagrees with "
                      f"{ref_name}: y {ey}, h {eh}")
-        if label != "main":
+        if label not in ("main", "T1024") or dtype_name != "bfloat16":
             continue
-        Bt, T, H, P, N = (shp[k] for k in ("Bt", "T", "H", "P", "N"))
-        L = min(SSD_CHUNK, T)
-        nck = T // L
-        nbytes = sum(t.numel() * t.element_size() for t in (*args, y, h))
-        # The causal half of C B^T (L(L+1)/2 entries) once per chunk (one
-        # B/C group), then per head and chunk the masked product with dt x
-        # (lower triangle), C h_in, and the state update.
-        flops = (2 * Bt * nck * (L * (L + 1) // 2) * N
-                 + Bt * H * nck * (L * (L + 1) * P + 4 * L * N * P))
-        bound_b = nbytes / PEAK_BYTES * 1e3
-        bound_f = flops / PEAK_FLOPS["float32"] * 1e3    # f32 math
+        # The first version of the kernel (chunks in order, CUDA cores),
+        # replaced: held to the same limits, timed in the same run.
+        old = lambda a=args: ms._launch(*a, SSD_CHUNK, loop=True)
+        yo, ho = old()
+        torch.cuda.synchronize()
+        (_, roy), (_, roh) = (_ssd_err(yo, yr, SSD_REL[dtype_name]),
+                              _ssd_err(ho, hr, 0.0))
+        if roy > 1.0 or roh > 1.0:
+            fail(f"ssd_chunked_loop_kernel/{label} disagrees with "
+                 f"ssd_chunked_ref: y {roy}, h {roh}")
+        nbytes, flops, bound_b, bound_f, ops_by = _ssd_bounds(
+            args, y, h, SSD_CHUNK)
         ms_k, eager = time_ms(kern)
         ms_p, plain_eager = time_ms(plain)
-        row = dict(
-            name="ssd_chunked", route="cuda", source=SOURCES["ssd_chunked"],
-            replaces=REPLACES["ssd_chunked"], launches=0,
-            max_abs_err=(y.float() - yr.float()).abs().max().item(),
-            ms=ms_k, plain_ms=ms_p, bound_ms=max(bound_b, bound_f),
-            bound_by="bytes" if bound_b >= bound_f else "operations",
-            library_ms=None)
-        log(f"[kernels] ssd_chunked     kernel_ms {ms_k:.4f} plain_ms "
-            f"{ms_p:.4f} library_ms none (no single PyTorch call computes "
-            f"the SSD scan) bound_ms {row['bound_ms']:.5f} "
-            f"({row['bound_by']}: {nbytes} B at {PEAK_BYTES:g} B/s = "
-            f"{bound_b:.5f} ms, {flops} f32 flop at "
-            f"{PEAK_FLOPS['float32']:g}/s = {bound_f:.5f} ms); issued "
-            f"eagerly: kernel {eager:.4f} plain {plain_eager:.4f} ms")
+        ms_o, old_eager = time_ms(old)
+        bound = max(bound_b, bound_f)
+        by = "bytes" if bound_b >= bound_f else "operations"
+        log(f"[kernels] ssd_chunked     {label}: kernel_ms {ms_k:.4f} "
+            f"plain_ms {ms_p:.4f} library_ms none (no single PyTorch call "
+            f"computes the SSD scan) bound_ms {bound:.5f} ({by}: {nbytes} "
+            f"B at {PEAK_BYTES:g} B/s = {bound_b:.5f} ms; {flops} f32 flop "
+            f"= {flops / PEAK_FLOPS['float32'] * 1e3:.5f} ms at "
+            f"{PEAK_FLOPS['float32']:g}/s, or as bf16x3 "
+            f"{3 * flops / PEAK_FLOPS['bfloat16'] * 1e3:.5f} ms at "
+            f"{PEAK_FLOPS['bfloat16']:g}/s: {ops_by}); issued eagerly: "
+            f"kernel {eager:.4f} plain {plain_eager:.4f} ms")
+        log(f"[kernels] ssd_chunked     {label}: the first version of its "
+            f"kernel (ssd_chunked_loop_kernel) {ms_o:.4f} ms (eagerly "
+            f"{old_eager:.4f}), within its limits (y {roy:.3f}, h "
+            f"{roh:.3f}); the new kernel takes {ms_k / ms_o:.3f} of its "
+            f"time")
+        if label == "main":
+            row = dict(
+                name="ssd_chunked", route="cuda",
+                source=SOURCES["ssd_chunked"],
+                replaces=REPLACES["ssd_chunked"], launches=0,
+                max_abs_err=(y.float() - yr.float()).abs().max().item(),
+                ms=ms_k, plain_ms=ms_p, bound_ms=bound, bound_by=by,
+                library_ms=None)
     # The chunk contract (JAX's): a ragged last chunk raises.
     args = _ssd_inputs(rng, torch.bfloat16, **dict(SSD_MAIN, T=100))
     try:

@@ -74,9 +74,13 @@ SIGNATURES = {
                                   _I, _I, _I, _F, _I, _P],
     },
     "ssd": {
-        # dtype, x, dt, A, B, C, y, h, Bt, T, H, P, N, L, stream
+        # dtype, x, dt, A, B, C, y, h, Bt, T, H, P, N, L, cluster, tile,
+        # stream
         "repro_ssd_chunked": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                              _I, _I, _I, _P],
+                              _I, _I, _I, _I, _I, _P],
+        # dtype, x, dt, A, B, C, y, h, Bt, T, H, P, N, L, stream
+        "repro_ssd_chunked_loop": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                   _I, _I, _I, _I, _P],
     },
     "uts": {
         # d0, d1, base, thresholds, cd0, cd1, m, M, W, stream
@@ -236,6 +240,62 @@ def prefill_plan(batch: int, kv_heads: int, group: int, rows: int) -> tuple:
     blocks = batch * kv_heads * tiles
     c = PREFILL_CLUSTER if blocks <= PREFILL_SPLIT_BLOCKS else 1
     return c, (c * tiles, kv_heads, batch)
+
+
+SMEM_LIMIT = 232_448   # dynamic shared memory a block of an H100 may use
+SSD_TILES = (16, 32, 64)    # columns of P a block of ssd_chunked_kernel
+
+
+def ssd_smem_bytes(N: int, pt: int) -> int:
+    """Shared memory of one block of ``ssd_chunked_kernel`` (``ssd.cu``'s
+    ChunkLayout): C and B of a chunk split into bf16 hi and lo planes (64
+    rows of round16(N) + 8), the same for dt x and its weighted copy (64
+    rows of pt + 8), the masked C B^T (64 x 72) and h_in (round16(N) rows
+    of pt + 8); the float32 run state (round16(N) rows of pt + 4) and the
+    scan's 3 x 64 floats and 4 decays."""
+    np_ = -(-N // 16) * 16
+    ldp, ldx, lds = np_ + 8, pt + 8, pt + 4
+    return (2 * 2 * 64 * ldp * 2 + 2 * 2 * 64 * ldx * 2 + 2 * 64 * 72 * 2
+            + 2 * np_ * ldx * 2 + np_ * lds * 4 + 3 * 64 * 4 + 16)
+
+
+def ssd_plan(batch: int, T: int, heads: int, P: int, N: int, L: int,
+             cluster: int | None = None, tile: int | None = None) -> tuple:
+    """(cluster size c, column tile pt, most chunks a block takes, grid)
+    of ``ssd_chunked_kernel`` in ``ssd.cu``: each (row, head, tile of pt
+    columns of P) is a cluster of c blocks, block k taking the chunks
+    [k n / c, (k + 1) n / c) of the n = T / L chunks, on a grid of (c,
+    heads * ceil(P / pt), batch). pt is the narrowest tile that covers P
+    (64 past it) whose shared memory fits, so that one block serves a
+    whole head where it can and C B^T is made once per head and chunk. c
+    is the largest power of two up to 8 and n (no block without a chunk)
+    that keeps the grid within one wave of an H100's 132 SMs (a block
+    takes an SM): on the card (``tools/ssd_ab.py``) the 1024-token bucket
+    ran faster in clusters of 4 than of 8, whose second wave cost more
+    than the shorter runs saved. ``cluster`` and ``tile`` override the
+    choice (the design sweep and the card tests use them). Static shapes
+    only."""
+    if L < 1 or T % L or min(batch, heads, P, N) < 1:
+        raise ValueError(f"ssd_plan: T {T}, L {L}, batch {batch}, heads "
+                         f"{heads}, P {P}, N {N}")
+    n = T // L
+    pt = tile
+    if pt is None:
+        fits = [t for t in SSD_TILES if ssd_smem_bytes(N, t) <= SMEM_LIMIT]
+        if not fits:
+            raise ValueError(f"ssd_plan: state size {N} does not fit")
+        pt = next((t for t in fits if t >= P), fits[-1])
+    if pt not in SSD_TILES or ssd_smem_bytes(N, pt) > SMEM_LIMIT:
+        raise ValueError(f"ssd_plan: tile {pt} at state size {N}")
+    runs = batch * heads * -(-P // pt)       # blocks at c = 1
+    c = cluster
+    if c is None:
+        c = 1
+        while c < MAX_CLUSTER and 2 * c <= n and 2 * c * runs <= 132:
+            c *= 2
+    if c not in (1, 2, 4, 8):
+        raise ValueError(f"ssd_plan: cluster {c} is not 1, 2, 4 or 8")
+    return c, pt, -(-n // c), (c, heads * -(-P // pt), batch)
 
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # the C side's dtype codes

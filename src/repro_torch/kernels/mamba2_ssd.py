@@ -1,7 +1,14 @@
 """Mamba2 SSD (state-space duality) chunk scan: the ssm family's prefill.
 
 ``ssd_chunked`` launches ``ssd_chunked_kernel`` of ``csrc/ssd.cu`` (it
-replaces the Pallas kernel ``repro/kernels/mamba2_ssd.py:ssd_chunked``).
+replaces the Pallas kernel ``repro/kernels/mamba2_ssd.py:ssd_chunked``):
+the chunks of a sequence run in parallel in a thread-block cluster that
+passes the state on through distributed shared memory, the products on
+the tensor cores as bf16x3 (each float32 operand split once into two bf16
+halves), for float32 and bfloat16 x alike.
+``_launch(..., loop=True)`` runs the first version of the kernel
+(``ssd_chunked_loop_kernel``: one block walks every chunk in order), which
+only the card tests, ``chip_smoke.py`` and ``tools/ssd_ab.py`` call.
 Its plain PyTorch versions are ``ssd_ref``, the sequential scan, and
 ``ssd_chunked_ref``, the chunk-matmul form that does the kernel's
 arithmetic (the counterparts of ``repro.kernels.ref.ssd_ref`` and
@@ -91,15 +98,9 @@ def ssd_chunked_ref(x, dt, A, B, C, chunk: int = 256):
     return y.to(x.dtype), h
 
 
-def ssd_chunked(x, dt, A, B, C, *, chunk: int = 64):
-    """x (Bt, T, H, P) float32 or bfloat16; dt (Bt, T, H), A (H,), B and C
-    (Bt, T, N) float32. Returns (y like x, h_final (Bt, H, N, P) float32).
-
-    A CPU tensor goes to ``ssd_chunked_ref``; a CUDA tensor launches the
-    kernel (or raises): chunk lengths up to 64, N a multiple of 4 up to
-    256."""
-    if x.device.type == "cpu":
-        return ssd_chunked_ref(x, dt, A, B, C, chunk=chunk)
+def _check(x, dt, A, B, C, chunk: int) -> tuple:
+    """The kernels' contract; returns (chunk length L, dtype code) or
+    raises before any launch."""
     if x.device.type != "cuda":
         raise ValueError(f"ssd_chunked: unsupported device {x.device}")
     if x.dim() != 4 or B.dim() != 3:
@@ -135,16 +136,45 @@ def ssd_chunked(x, dt, A, B, C, *, chunk: int = 64):
             raise ValueError("ssd_chunked: inputs must be contiguous")
     if B.data_ptr() % 16 or C.data_ptr() % 16:
         raise ValueError("ssd_chunked: B and C must be 16-byte aligned")
+    return L, code
+
+
+def _launch(x, dt, A, B, C, chunk: int, *, cluster=None, tile=None,
+            loop: bool = False):
+    """One launch of ``ssd_chunked_kernel`` on the plan of
+    ``_build.ssd_plan`` (``cluster`` and ``tile`` override it), or with
+    ``loop`` of ``ssd_chunked_loop_kernel``, the first version of the
+    kernel; counts nothing. Returns (y, h)."""
+    L, code = _check(x, dt, A, B, C, chunk)
+    Bt, T, H, P = x.shape
+    N = B.shape[-1]
     y = torch.empty_like(x)
     h = torch.empty((Bt, H, N, P), dtype=torch.float32, device=x.device)
-    err = _build.lib("ssd").repro_ssd_chunked(
-        code, x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-        C.data_ptr(), y.data_ptr(), h.data_ptr(), Bt, T, H, P, N, L,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    _build.check(err, "ssd_chunked")
-    ssd_chunked.launches += 1
+    args = (code, x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), y.data_ptr(), h.data_ptr(), Bt, T, H, P, N, L)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    lib = _build.lib("ssd")
+    if loop:
+        err = lib.repro_ssd_chunked_loop(*args, stream)
+    else:
+        c, pt, _, _ = _build.ssd_plan(Bt, T, H, P, N, L, cluster, tile)
+        err = lib.repro_ssd_chunked(*args, c, pt, stream)
+    _build.check(err, "ssd_chunked_loop" if loop else "ssd_chunked")
     return y, h
+
+
+def ssd_chunked(x, dt, A, B, C, *, chunk: int = 64):
+    """x (Bt, T, H, P) float32 or bfloat16; dt (Bt, T, H), A (H,), B and C
+    (Bt, T, N) float32. Returns (y like x, h_final (Bt, H, N, P) float32).
+
+    A CPU tensor goes to ``ssd_chunked_ref``; a CUDA tensor launches
+    ``ssd_chunked_kernel`` (or raises), in either dtype: chunk lengths up
+    to 64, N a multiple of 4 up to 256."""
+    if x.device.type == "cpu":
+        return ssd_chunked_ref(x, dt, A, B, C, chunk=chunk)
+    out = _launch(x, dt, A, B, C, chunk)
+    ssd_chunked.launches += 1
+    return out
 
 
 ssd_chunked.launches = 0   # kernel launches (the CPU path never counts)

@@ -11,9 +11,18 @@ launch builds the kernels from ``src/repro_torch/csrc`` with ``nvcc``.
 ``ssd_chunked`` is held against ``ssd_chunked_ref`` (the same float32 math
 in another summation order), element by element:
 |got - ref| <= rel * |ref| + 1e-4 * max(1, max |ref|). The absolute term is
-float32 summation order; rel is 0 for float32 outputs and 2^-6 for
+float32 summation order (the kernel's bf16x3 products keep ~2^-16 of each
+product, a twentieth of it); rel is 0 for float32 outputs and 2^-6 for
 bfloat16 y, two bf16 ulps, since both sides round once from float32 and
-may land one ulp (at most 2^-7 of the value) apart.
+may land one ulp (at most 2^-7 of the value) apart. Its cases: the
+mamba2-130m buckets of 256 and 1024 tokens, 2048 tokens, chunks of 8, 16
+and 64, T shorter than a chunk, 1-3 rows, P 16-100 (ragged column tiles),
+N 4-256, in both dtypes with one launch a call; then every cluster size
+and column tile the launch plan can pick (runs of one chunk, of several,
+and blocks with none), replay from a CUDA graph with new inputs, the route
+each dtype takes, the first version of the kernel
+(``ssd_chunked_loop_kernel``) still against the plain version, a build
+failure that raises, and the shapes it refuses.
 
 ``uts_expand`` is held bit for bit against ``uts_expand_ref`` and against
 the first version of its kernel (``uts_expand_lane_kernel``), at widths
@@ -69,6 +78,7 @@ import torch
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention
 from repro_torch.kernels.flash_decode import decode_ref, flash_decode
+from repro_torch.kernels.mamba2_ssd import _launch as ssd_launch
 from repro_torch.kernels.mamba2_ssd import ssd_chunked, ssd_chunked_ref
 from repro_torch.kernels.moe_gmm import gmm, gmm_ref
 from repro_torch.kernels.paged_decode import (paged_decode, paged_decode_ref,
@@ -102,29 +112,146 @@ def card():
     torch.backends.cuda.matmul.allow_tf32 = False    # f32 means f32
 
 
+SSD_RELS = [(torch.float32, 0.0), (torch.bfloat16, 2.0 ** -6)]
+
+
+def _check_ssd(args, chunk, rel, **launch):
+    """One launch (through the wrapper, or ``_launch`` with ``launch``)
+    against ssd_chunked_ref under ``_close``."""
+    x = args[0]
+    if launch:
+        y, h = ssd_launch(*args, chunk, **launch)
+    else:
+        y, h = ssd_chunked(*args, chunk=chunk)
+    yr, hr = ssd_chunked_ref(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert y.dtype == x.dtype and h.dtype == torch.float32
+    assert torch.isfinite(y.float()).all() and torch.isfinite(h).all()
+    assert _close(y, yr, rel)
+    assert _close(h, hr, 0.0)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,rel", [(torch.float32, 0.0),
-                                       (torch.bfloat16, 2.0 ** -6)])
+@pytest.mark.parametrize("dtype,rel", SSD_RELS)
 @pytest.mark.parametrize("Bt,T,H,P,N,chunk", [
     (1, 256, 24, 64, 128, 64),     # the mamba2-130m prefill bucket
     (2, 64, 3, 32, 64, 64),
     (1, 24, 2, 16, 16, 64),        # T shorter than the chunk
     (1, 40, 2, 24, 20, 8),         # P not a multiple of the 16-column tile
     (1, 64, 2, 64, 256, 16),       # the largest state the kernel takes
+    (1, 1024, 24, 64, 128, 64),    # the 1024-token bucket: 16 chunks
+    (1, 2048, 4, 64, 128, 64),     # 32 chunks, 4 a block
+    (1, 256, 4, 64, 128, 16),      # chunk 16: 16 chunks
+    (3, 192, 3, 32, 64, 64),       # three rows of 3 chunks
+    (1, 128, 3, 24, 32, 32),       # P 24: a ragged 32-column tile
+    (1, 256, 2, 100, 64, 64),      # P 100: a full and a ragged tile
+    (1, 128, 2, 16, 4, 32),        # the smallest state
+    (1, 512, 2, 64, 256, 64),      # the largest state over 8 chunks
 ])
 def test_ssd_kernel_matches_plain_version(card, Bt, T, H, P, N, chunk,
                                           dtype, rel):
     x, dt, A, B, C = _inputs(T + N, Bt, T, H, P, N)
-    x = x.to(dtype)
     ops.reset_launches()
-    y, h = ssd_chunked(x, dt, A, B, C, chunk=chunk)
-    yr, hr = ssd_chunked_ref(x, dt, A, B, C, chunk=chunk)
+    _check_ssd((x.to(dtype), dt, A, B, C), chunk, rel)
+    assert ops.kernel_launches()["ssd_chunked"] == 1   # one launch a call
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("tile", [16, 32, 64])
+@pytest.mark.parametrize("T,chunk", [(320, 64), (1024, 64), (48, 16)])
+def test_ssd_kernel_at_every_cluster_and_tile(card, cluster, tile, T,
+                                              chunk):
+    """Clusters of 1-8 blocks over 5, 16 and 3 chunks (runs of one chunk,
+    of several, and blocks with none when c exceeds the chunks) and every
+    column tile at a P of 40 (ragged at each tile), in bf16."""
+    args = _inputs(cluster + tile + T, 1, T, 3, 40, 64)
+    _check_ssd((args[0].bfloat16(), *args[1:]), chunk, 2.0 ** -6,
+               cluster=cluster, tile=tile)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [256, 1024])
+def test_ssd_kernel_replays_in_a_cuda_graph(card, T):
+    """A captured launch replays with new inputs copied into its tensors:
+    its grid and cluster come from the shapes only."""
+    x, dt, A, B, C = _inputs(1, 1, T, 24, 64, 128)
+    x = x.bfloat16()
+    ssd_chunked(x, dt, A, B, C)
     torch.cuda.synchronize()
-    assert ops.kernel_launches()["ssd_chunked"] == 1
-    assert y.dtype == dtype and h.dtype == torch.float32
-    assert torch.isfinite(y.float()).all() and torch.isfinite(h).all()
-    assert _close(y, yr, rel)
-    assert _close(h, hr, 0.0)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y, h = ssd_chunked(x, dt, A, B, C)
+    for seed in (2, 3):
+        for dst, src in zip((x, dt, A, B, C), _inputs(seed, 1, T, 24, 64,
+                                                       128)):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        yr, hr = ssd_chunked_ref(x, dt, A, B, C, chunk=64)
+        assert _close(y, yr, 2.0 ** -6) and _close(h, hr, 0.0)
+
+
+class _EntrySpy:
+    """A kernel library that records which entry points are taken."""
+
+    def __init__(self, lib):
+        self.lib, self.taken = lib, []
+
+    def __getattr__(self, name):
+        self.taken.append(name)
+        return getattr(self.lib, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_routes_by_dtype(card, monkeypatch, dtype):
+    """Both dtypes of x launch ssd_chunked_kernel (the 3xTF32 products hold
+    float32's limits), one launch a call; the plain versions launch
+    nothing."""
+    spy = _EntrySpy(_build.lib("ssd"))
+    real_lib = _build.lib
+    monkeypatch.setattr(_build, "lib",
+                        lambda name: spy if name == "ssd" else real_lib(name))
+    x, dt, A, B, C = _inputs(4, 1, 128, 2, 32, 64)
+    ops.reset_launches()
+    ops.ssd(x.to(dtype), dt, A, B, C)
+    ops.ssd(x.to(dtype), dt, A, B, C, impl="ref")
+    ops.ssd(x.to(dtype), dt, A, B, C, impl="chunked")
+    torch.cuda.synchronize()
+    assert spy.taken == ["repro_ssd_chunked"]
+    counts = ops.kernel_launches()
+    assert counts["ssd_chunked"] == 1 and sum(counts.values()) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", SSD_RELS)
+@pytest.mark.parametrize("Bt,T,H,P,N,chunk", [
+    (1, 256, 24, 64, 128, 64), (1, 40, 2, 24, 20, 8),
+    (1, 64, 2, 64, 256, 16), (1, 1024, 4, 64, 128, 64)])
+def test_ssd_loop_kernel_matches_plain_version(card, Bt, T, H, P, N, chunk,
+                                               dtype, rel):
+    """The first version of the kernel (ssd_chunked_loop_kernel), which the
+    wrapper no longer calls, still holds; it counts no launch."""
+    x, dt, A, B, C = _inputs(T + P, Bt, T, H, P, N)
+    ops.reset_launches()
+    _check_ssd((x.to(dtype), dt, A, B, C), chunk, rel, loop=True)
+    assert ops.kernel_launches()["ssd_chunked"] == 0
+
+
+@pytest.mark.cuda
+def test_ssd_build_failure_raises(card, tmp_path, monkeypatch):
+    """A source that does not compile raises from the first launch; there
+    is no fallback to the plain version."""
+    bad = tmp_path / "ssd.cu"
+    bad.write_text("this is not CUDA\n")
+    monkeypatch.setattr(_build, "SOURCES", dict(_build.SOURCES, ssd=bad))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_libs", {})
+    ops.reset_launches()
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        ssd_chunked(*_inputs(0, 1, 64, 2, 16, 16), chunk=64)
+    assert ops.kernel_launches()["ssd_chunked"] == 0
 
 
 @pytest.mark.cuda
