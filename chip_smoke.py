@@ -65,6 +65,32 @@ Phases, in order; any failure exits non-zero:
                The fabric must terminate with every request done, and
                ssd_chunked must have been launched. Then one admission's
                prefill under torch.profiler: ssd_chunked's share of it.
+  5b. migrate — tinyllama-1.1b at full width (phase 4's weights) through
+               two paged replicas on the card (block 16, 8 slots, max_seq
+               1024, prefix cache, prefill chunk 64), 8 requests of 244-256
+               prompt tokens all admitted on replica 0 before the first
+               balance pass. (a) Tier 2: replica 1's pool holds 64 blocks,
+               so the pass lands three sequences live and the fourth
+               radix-seeded; every transfer buffer must equal the
+               victim's blocks and every live landing's blocks the buffer,
+               bit for bit, its size the written blocks times the bytes of
+               a block, and replica 1 must launch paged_decode and
+               paged_prefill after its first landing; pack and land times
+               (host clock), and the gather, copies and scatter of four
+               live migrations between two fresh replicas under
+               torch.profiler beside their bound; tokens against a run
+               without migration, printed. (b) replica 1
+               crashes at superstep 2 holding running sequences: the
+               fabric must terminate with replica 1 dead and its running
+               sequences re-admitted on replica 0. (c) predictive
+               balancing with a cost model, an SLO monitor and a flight
+               recorder an eighth the size of the run's trace: a diffusion
+               move, a valid dump, and the same traffic under an unbounded
+               tracer attributed and stitched by the analyzer. The path's
+               kernels (flash_attention, paged_decode, paged_prefill) must
+               launch over the three runs. The serve phase's profile also
+               prints the card's own service times per prefill and decode
+               token beside the cost model's defaults.
   6. glb     — the GLB task executor. uts_expand against uts_expand_ref,
                bit for bit, at the UTS path's shape (1024 nodes x 256
                lanes) and edge shapes (odd widths, a threshold table that
@@ -82,8 +108,10 @@ Phases, in order; any failure exits non-zero:
                plain expansion, which must agree in every number.
   7. parity  — kernel path vs plain path end to end: identical greedy
                tokens on the f32 smoke configs (tinyllama in every engine
-               mode, the mamba2 fabric), and close last-position prefill
-               logits at full width (both models).
+               mode, the mamba2 fabric, and a migrating tinyllama fabric
+               of three paged replicas, whose decisions, live steals
+               included, must be identical too), and close last-position
+               prefill logits at full width (both models).
 The last two lines of standard output are one JSON object with each
 kernel's numbers and the contract line {"ok": true, "device": {...}}.
 """
@@ -1195,17 +1223,25 @@ def phase_profile(params):
 
     cfg = ARCHS["tinyllama-1.1b"]
     eng = Engine(cfg, params, device=DEVICE, **SERVE)
+    admit_ms = []
     for r in _requests(np.random.default_rng(4), cfg.vocab,
                        n=SERVE["max_slots"]):
         r.max_new = 128                # nobody finishes inside the window
         eng.submit(r)
-    eng.step()                         # admits every slot; warm-up
+        torch.cuda.synchronize()       # one admission at a time, timed
+        t0 = time.time()
+        with torch.inference_mode():
+            eng._admit()
+        torch.cuda.synchronize()
+        admit_ms.append((time.time() - t0) * 1e3)
+    eng.step()                         # warm-up
     torch.cuda.synchronize()
     t0 = time.time()
     for _ in range(2):
         eng.step()
     torch.cuda.synchronize()
     wall = (time.time() - t0) / 2 * 1e3
+    _service_times(admit_ms, wall)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(2):
@@ -1244,6 +1280,29 @@ def phase_profile(params):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
     for name, (n, ms) in top:
         log(f"[profile]   {ms:8.3f} ms {n:6.0f}x per step  {name[:90]}")
+
+
+def _service_times(admit_ms, step_ms):
+    """The card's own service times beside ``CostParams``' defaults (the
+    reference's policy constants, which the port keeps): µs per prefill
+    token from single admissions of a full bucket, and µs per decode
+    token from steady decode steps with every slot busy."""
+    import numpy as np
+
+    from repro_torch.serve import CostParams
+
+    cp = CostParams()
+    pre = float(np.median(admit_ms)) * 1e3 / SERVE["pad_len"]
+    per_seq = step_ms * 1e3 / SERVE["steps_per_sync"]
+    log(f"[service] tinyllama-1.1b contiguous engine, host clock: an "
+        f"admission ({SERVE['pad_len']}-token bucket) median "
+        f"{np.median(admit_ms):.2f} ms of {len(admit_ms)} = {pre:.1f} us "
+        f"per prefill token (CostParams.us_per_prefill_token "
+        f"{cp.us_per_prefill_token:g}); a decode step {step_ms:.2f} ms = "
+        f"{per_seq:.1f} us per decode token of one sequence at "
+        f"{SERVE['max_slots']} busy slots (CostParams.us_per_decode_token "
+        f"{cp.us_per_decode_token:g}), "
+        f"{per_seq / SERVE['max_slots']:.1f} us per token of the batch")
 
 
 # ------------------------------------------------------------ phase 5
@@ -1368,6 +1427,421 @@ def phase_prefill_profile(params):
         f"ms in {records} records; ssd_chunked {ssd:.3f} ms in {n_ssd} "
         f"launches = {100 * ssd / busy:.1f}% of its device time, "
         f"{100 * ssd / wall_prof:.1f}% of its host time")
+
+
+# ------------------------------------------------------------ phase 5b
+# Live KV migration (balancer tier 2), replica faults, predictive
+# balancing, the SLO monitor and the flight recorder, on tinyllama-1.1b at
+# full width: two paged replicas on the one card sharing phase 4's weights.
+MIGRATE = dict(SERVE, paged=True, block_size=BLOCK, prefix_cache=True,
+               prefill_chunk=CHUNK)
+MIG_N_REQ = 8
+# Replica 1's pool in run (a): the fewest blocks an engine takes (one
+# full-length sequence, 64 blocks), so that the balancer's first pass
+# lands some sequences live and then runs out of room for the next,
+# which lands radix-seeded.
+MIG_POOL1 = SERVE["max_seq"] // BLOCK
+MIG_PATH = ("flash_attention", "paged_decode", "paged_prefill")
+# Run (a)'s balancer gives work only from a victim with two units or more
+# (the paper's min_give), so that the one sequence landed radix-seeded
+# waits on replica 1 for its planted prefix instead of going straight
+# back to replica 0, which its departure left hungry.
+TIER2 = dict(min_give=2)
+
+
+def _mig_requests(rng, vocab, n=MIG_N_REQ, max_new=(48, 97)):
+    """Prompts of 244-256 tokens (a full bucket) behind a shared 64-token
+    system prompt, so that a sequence has 17-19 blocks written when it
+    migrates."""
+    from repro_torch.serve import Request
+
+    system = [int(t) for t in rng.integers(1, vocab, 64)]
+    return [Request(rid=i, prompt=system + [
+                int(t) for t in rng.integers(1, vocab,
+                                             int(rng.integers(180, 193)))],
+                    max_new=int(rng.integers(*max_new)))
+            for i in range(n)]
+
+
+def _saturate(engine, extra=2, guard=64):
+    """Step replica 0 until every request it holds is decoding (its queue
+    empty, no slot mid-prefill), then ``extra`` steps more: the balancer
+    can then move only live sequences."""
+    while engine.queue or any(engine.sched.mid_prefill(i)
+                              for i in range(engine.max_slots)):
+        engine.step()
+        guard -= 1
+        if guard == 0:
+            fail("migrate: replica 0 never finished admitting its requests")
+    for _ in range(extra):
+        engine.step()
+
+
+class _MigrationWatch:
+    """Wraps the replicas' migrate_out / migrate_in / step to check and
+    time every migration of a run: the gathered buffer equals the
+    victim's pool blocks and, for a live landing, the thief's blocks at
+    the injected table, bit for bit; its size is the written blocks times
+    the bytes of a block; pack and land times on the host clock (ending
+    in a synchronize); and the kernels each replica launches after its
+    first landing."""
+
+    def __init__(self, bal):
+        self.pack_ms, self.land_ms = [], []
+        self.modes, self.bytes, self.checked = [], [], 0
+        self.landed = set()
+        self.after = {e.replica_id: {} for e in bal.engines}
+        for e in bal.engines:
+            self._wrap(e)
+
+    @staticmethod
+    def block_bytes(e):
+        k = e.cache["k"]
+        return 2 * k.shape[0] * k[0, 0].numel() * k.element_size()
+
+    @staticmethod
+    def _timed(fn, times):
+        """``fn()``, timed on the host clock (ending in a synchronize)
+        into ``times``."""
+        import torch
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def _wrap(self, e):
+        import torch
+
+        from repro_torch.kernels import ops
+
+        out0, in0, step0 = e.migrate_out, e.migrate_in, e.step
+
+        def migrate_out(slot):
+            rid = e.slots[slot].rid
+            blocks = e.pool.extract(rid)[0]
+            mig = self._timed(lambda: out0(slot), self.pack_ms)
+            nb = -(-mig.written // e.block_size)
+            got = sum(b.nbytes for b in mig.kv.values())
+            if got != nb * self.block_bytes(e) or len(blocks) != nb:
+                fail(f"migrate: request {rid} shipped {got} bytes, want "
+                     f"{nb} written blocks x {self.block_bytes(e)}")
+            self.bytes.append(got)
+            for n, buf in mig.kv.items():
+                # the victim's freed blocks still hold what was gathered
+                if not torch.equal(e.cache[n][:, blocks].cpu(), buf):
+                    fail(f"migrate: the {n} buffer of request {rid} is not "
+                         "the victim's blocks")
+            return mig
+
+        def migrate_in(mig):
+            mode = self._timed(lambda: in0(mig), self.land_ms)
+            self.modes.append(mode)
+            if mode == "live":
+                nb = mig.kv["k"].shape[1]
+                table = e.pool.block_table(mig.req.rid)[:nb]
+                for n, buf in mig.kv.items():
+                    if not torch.equal(e.cache[n][:, table].cpu(), buf):
+                        fail(f"migrate: replica {e.replica_id}'s {n} "
+                             f"blocks {table} are not the transfer buffer "
+                             f"of request {mig.req.rid}")
+                self.checked += 1
+            if mode in ("live", "seeded"):
+                self.landed.add(e.replica_id)
+            return mode
+
+        def step():
+            if e.replica_id not in self.landed:
+                return step0()
+            before = ops.kernel_launches()
+            step0()
+            for k, v in ops.kernel_launches().items():
+                d = self.after[e.replica_id]
+                d[k] = d.get(k, 0) + v - before[k]
+
+        e.migrate_out, e.migrate_in, e.step = migrate_out, migrate_in, step
+
+
+def _profile_migrations(cfg, weights, n=4):
+    """The device work of ``n`` live migrations of one 17-block sequence
+    between two fresh paged replicas (back and forth, each landing live),
+    in one torch.profiler session that a throwaway ~1 ms kernel opens
+    (the tracer can miss the records of its first moments). Returns
+    ({kind: [ms per migration, records]}, bytes per migration): gather
+    kernels (``index_select`` runs as a gather kernel on the card) and
+    device->host copies of migrate_out; host->device copies (the buffer
+    and both sides' block ids) and scatter kernels (``index_copy_``, an
+    indexing kernel) of migrate_in. Each kind is averaged over the
+    records it has, so that a record the tracer missed does not count as
+    zero time."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve import Engine
+
+    engines = [Engine(cfg, weights, replica_id=i, device=DEVICE, **MIGRATE)
+               for i in range(2)]
+    req = _mig_requests(np.random.default_rng(10), cfg.vocab, n=1,
+                        max_new=(200, 201))[0]
+    engines[0].submit(req)
+    _saturate(engines[0])
+    nbytes = []
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        if DEVICE == "cuda":
+            torch.cuda._sleep(2_000_000)
+        torch.cuda.synchronize()
+        for i in range(n):
+            src, dst = engines[i % 2], engines[1 - i % 2]
+            mig = src.migrate_out(src.migratable_slots()[0])
+            nbytes.append(sum(b.nbytes for b in mig.kv.values()))
+            if dst.migrate_in(mig) != "live":
+                fail("migrate: a profiled migration did not land live")
+        torch.cuda.synchronize()
+    per = {"gather": 2, "d2h": 2, "h2d": 4, "scatter": 2}   # a migration
+    split = {k: [0.0, 0] for k in per}
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        name = ev.name.lower()
+        kind = ("h2d" if "htod" in name else "d2h" if "dtoh" in name else
+                "gather" if "gather" in name else
+                "scatter" if "index" in name else None)
+        if kind:
+            split[kind][0] += ev.time_range.elapsed_us() / 1e3
+            split[kind][1] += 1
+    if any(v[1] < n for v in split.values()) or len(set(nbytes)) != 1:
+        fail(f"migrate: the profiled migrations recorded {split}, bytes "
+             f"{nbytes}")
+    return {k: [v[0] / v[1] * per[k], v[1]] for k, v in split.items()}, \
+        nbytes[0]
+
+
+def _quantiles(xs):
+    import numpy as np
+
+    return float(np.percentile(xs, 50)), float(np.percentile(xs, 99))
+
+
+def _mig_fabric(cfg, weights, reqs, pool1=None, migrate=True, kw=MIGRATE,
+                params=None, **bkw):
+    """Two paged replicas on the card sharing ``weights``, every request on
+    replica 0, which admits them all before the balancer's first pass."""
+    from repro_torch.core import GLBParams
+    from repro_torch.serve import Engine, GLBReplicaBalancer
+
+    engines = [Engine(cfg, weights, replica_id=i, device=DEVICE,
+                      num_blocks=pool1 if i else None,
+                      tracer=bkw.get("tracer"), **kw) for i in range(2)]
+    bal = GLBReplicaBalancer(engines, GLBParams(**(params or {})),
+                             migrate=migrate, **bkw)
+    for r in reqs:
+        bal.submit(r, rr=0)
+    _saturate(engines[0])
+    return bal
+
+
+def _finish(tag, bal, reqs, vocab):
+    status = bal.run()
+    if status != "terminated":
+        fail(f"migrate {tag}: run() returned {status!r}")
+    if not all(r.done for r in reqs):
+        fail(f"migrate {tag}: {sum(not r.done for r in reqs)} requests "
+             "unfinished")
+    for r in reqs:
+        if not r.out or min(r.out) < 0 or max(r.out) >= vocab:
+            fail(f"migrate {tag}: request {r.rid} emitted bad ids")
+
+
+def phase_migrate(params):
+    """tinyllama-1.1b at full width through two paged replicas: (a) tier 2
+    with live and radix-seeded landings, (b) a replica crash, (c)
+    predictive balancing with the SLO monitor and the flight recorder.
+    Returns the launches of the path's kernels over the three runs."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import ops
+    from repro_torch.obs import (FlightRecorder, SLOMonitor, Tracer,
+                                 parse_slo_spec, validate_chrome_trace)
+    from repro_torch.obs.analyze import analyze_trace, check_invariants
+    from repro_torch.serve import CostModel, FaultInjector
+
+    cfg = ARCHS["tinyllama-1.1b"]
+    launches = {name: 0 for name in MIG_PATH}
+
+    def count(tag):
+        c = ops.kernel_launches()
+        for name in MIG_PATH:
+            launches[name] += c[name]
+        log(f"[migrate] {tag} launches {c}")
+
+    # (a) tier 2: live landings until replica 1's pool is full, then a
+    # radix-seeded one.
+    reqs = _mig_requests(np.random.default_rng(7), cfg.vocab)
+    bal = _mig_fabric(cfg, params, reqs, pool1=MIG_POOL1, params=TIER2)
+    watch = _MigrationWatch(bal)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.time()
+    _finish("(a)", bal, reqs, cfg.vocab)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    count("(a)")
+    modes = bal.migration_modes
+    e0, e1 = bal.engines
+    log(f"[migrate] (a) {len(reqs)} requests on replica 0 (prompts "
+        f"{min(len(r.prompt) for r in reqs)}-"
+        f"{max(len(r.prompt) for r in reqs)} tokens, max_new "
+        f"{min(r.max_new for r in reqs)}-{max(r.max_new for r in reqs)}), "
+        f"admitted before the first pass; replica 1's pool "
+        f"{MIG_POOL1} blocks of {BLOCK}, replica 0's "
+        f"{e0.num_blocks}; {wall:.2f} s, {bal.supersteps} supersteps")
+    log(f"[migrate] (a) decisions {bal.decisions}")
+    log(f"[migrate] (a) landings {modes}: live {e1.migrations_in}, seeded "
+        f"{e1.migrations_seeded} ({e1.prefix_cache.seeded_tokens} seeded "
+        f"tokens), recompute {e1.migrations_recompute}; replica 1 "
+        f"adoptions {e1.sched.adoptions}, cache hits "
+        f"{e1.prefix_cache.hits}, preemptions {e1.sched.preemptions}")
+    if modes["live"] < 1 or modes["seeded"] < 1:
+        fail(f"migrate (a): want a live and a seeded landing, got {modes}")
+    if watch.checked < 1:
+        fail("migrate (a): no live landing was checked block for block")
+    log(f"[migrate] (a) block identity: {watch.checked} live landings' "
+        f"k/v blocks torch.equal to the transfer buffer, and "
+        f"{len(watch.bytes)} buffers to the victim's blocks")
+    bb = _MigrationWatch.block_bytes(e0)
+    hist = bal.merged_metrics().histogram("migration_bytes")
+    if hist.total != sum(watch.bytes) or hist.count != len(watch.bytes):
+        fail(f"migrate (a): migration_bytes histogram {hist.total} over "
+             f"{hist.count}, checked {sum(watch.bytes)} over "
+             f"{len(watch.bytes)}")
+    after = watch.after[1]
+    log(f"[migrate] (a) replica 1 after its first landing launched "
+        f"{ {k: v for k, v in after.items() if v} }; its radix cache "
+        f"served {e1.prefix_cache.tokens_reused} tokens in "
+        f"{e1.prefix_cache.hits} hits")
+    for name in ("paged_decode", "paged_prefill"):
+        if after.get(name, 0) <= 0:
+            fail(f"migrate (a): {name} never launched on replica 1 after "
+                 "a landing")
+    p50, p99 = _quantiles(watch.pack_ms)
+    l50, l99 = _quantiles(watch.land_ms)
+    st = bal.merged_metrics().snapshot()
+    log(f"[migrate] (a) {len(watch.bytes)} migrations, "
+        f"{np.mean(watch.bytes) / 1e6:.3f} MB each on average "
+        f"({bb} bytes a block, {min(watch.bytes)}-{max(watch.bytes)}); "
+        f"migrate_pack_ms p50 {p50:.3f} p99 {p99:.3f}, migrate_land_ms p50 "
+        f"{l50:.3f} p99 {l99:.3f} (host clock, each ending in a "
+        f"synchronize; the engines' own histograms, bucketed: pack p50 "
+        f"{st['migrate_pack_ms_p50']:.3f} p99 "
+        f"{st['migrate_pack_ms_p99']:.3f}, land p50 "
+        f"{st['migrate_land_ms_p50']:.3f} p99 "
+        f"{st['migrate_land_ms_p99']:.3f})")
+    split, nbytes = _profile_migrations(cfg, params)
+    bound = 2 * nbytes / PEAK_BYTES * 1e3
+    log(f"[migrate] (a) 4 live migrations of {nbytes} bytes between two "
+        f"fresh replicas under torch.profiler, device ms a migration: "
+        f"gather {split['gather'][0]:.4f} (2 kernels; bound {bound:.4f}: "
+        f"2 x bytes / 3.35 TB/s), device->host {split['d2h'][0]:.4f} "
+        f"({nbytes / split['d2h'][0] / 1e6:.1f} GB/s), host->device "
+        f"{split['h2d'][0]:.4f}, both sides' block ids included "
+        f"({nbytes / split['h2d'][0] / 1e6:.1f} GB/s), scatter "
+        f"{split['scatter'][0]:.4f} (2 kernels; bound {bound:.4f}); "
+        f"records { {k: v[1] for k, v in split.items()} }")
+    mig_out = [list(r.out) for r in reqs]
+    # The same traffic without tier 2 (replica 0 keeps everything): the
+    # tokens are printed, not gated, since batch composition changes the
+    # rounding of the bf16 matrix products.
+    ref = _mig_requests(np.random.default_rng(7), cfg.vocab)
+    _finish("(a) without migration",
+            _mig_fabric(cfg, params, ref, pool1=MIG_POOL1, migrate=False,
+                        params=TIER2),
+            ref, cfg.vocab)
+    same = sum(a == list(b.out) for a, b in zip(mig_out, ref))
+    log(f"[migrate] (a) greedy tokens equal to a run without migration in "
+        f"{same} of {len(ref)} requests (bf16; not gated)")
+
+    # (b) replica 1 crashes at superstep 2, holding the sequences it
+    # took at superstep 0; its running sequences come back to replica 0
+    # as recompute resumes, prefilled in one bucket (flash_attention).
+    plain = dict(SERVE, paged=True, block_size=BLOCK)
+    reqs = _mig_requests(np.random.default_rng(8), cfg.vocab,
+                         max_new=(32, 65))
+    bal = _mig_fabric(cfg, params, reqs, kw=plain,
+                      faults=FaultInjector().crash(1, at=2))
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    _finish("(b)", bal, reqs, cfg.vocab)
+    torch.cuda.synchronize()
+    count("(b)")
+    log(f"[migrate] (b) crash of replica 1 at superstep 2: alive "
+        f"{bal.alive}, dead {bal.replicas_dead}, re-admitted "
+        f"{bal.readmitted_running} running / {bal.readmitted_queued} "
+        f"queued; decisions {bal.decisions}; {bal.supersteps} supersteps")
+    if bal.alive != [True, False] or bal.readmitted_running < 1:
+        fail(f"migrate (b): alive {bal.alive}, "
+             f"{bal.readmitted_running} running re-admitted")
+
+    # (c) predictive balancing, an SLO monitor and a flight recorder far
+    # smaller than the run's trace; then the same traffic under an
+    # unbounded tracer through the analyzer.
+    def run_c(tracer):
+        reqs = _mig_requests(np.random.default_rng(9), cfg.vocab,
+                             max_new=(32, 65))
+        slo = SLOMonitor(parse_slo_spec("ttft_ms=5000,tpot_ms=200"))
+        bal = _mig_fabric(cfg, params, reqs, cost_model=CostModel(),
+                          predictive=True, slo=slo, tracer=tracer)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        _finish("(c)", bal, reqs, cfg.vocab)
+        torch.cuda.synchronize()
+        if bal.diffusion_moves < 1:
+            fail(f"migrate (c): no diffusion move ({bal.decisions})")
+        return bal
+
+    tracer = Tracer()
+    run_c(tracer)                       # not counted: the analyzer's run
+    a = analyze_trace(tracer)
+    bad = check_invariants(a)
+    moved = [r for r in a.requests if r.migrations]
+    log(f"[migrate] (c) unbounded trace: {len(tracer.events)} events; "
+        f"analyzer: {len(a.requests)} requests, max unattributed "
+        f"{max(r.unattributed_frac for r in a.requests):.2e}, "
+        f"{len(moved)} migrated, across pids "
+        f"{sorted({tuple(r.replicas) for r in moved})}; violations {bad}")
+    if bad or len(a.requests) != MIG_N_REQ or not moved or any(
+            len(r.replicas) < 2 for r in moved):
+        fail("migrate (c): the analyzer did not attribute and stitch the "
+             "trace")
+    capacity = len(tracer.events) // 8
+    flight = FlightRecorder(capacity=capacity)
+    bal = run_c(flight)
+    count("(c)")
+    dump = flight.dump()
+    problems = validate_chrome_trace(dump)
+    log(f"[migrate] (c) predictive: decisions {bal.decisions}; "
+        f"{bal.diffusion_moves} diffusion moves; cost "
+        f"{bal.collect()['_cost']}")
+    for ln in bal.report().splitlines()[-4:]:
+        log(f"[migrate] (c) {ln.strip()}")
+    log(f"[migrate] (c) flight recorder: capacity {capacity} (an eighth of "
+        f"the unbounded trace), {flight.dropped} events dropped, "
+        f"{dump['otherData']['flight']['synthesized_opens']} opens "
+        f"synthesized, validator problems {problems}")
+    if problems or flight.dropped <= 0:
+        fail(f"migrate (c): flight dump invalid or never wrapped "
+             f"({problems[:3]}, dropped {flight.dropped})")
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"migrate: kernel {name} was never launched on the path")
+    log(f"[migrate] launches over (a), (b) and (c): {launches}")
+    return launches
 
 
 # ------------------------------------------------------------ phase 6
@@ -1645,7 +2119,7 @@ def phase_parity(params_full, mamba_full):
 
     from repro_torch.configs import ARCHS
     from repro_torch.models import init_lm
-    from repro_torch.serve import Engine
+    from repro_torch.serve import Engine, GLBReplicaBalancer
 
     # (a) f32 smoke config: kernel path vs plain path, greedy tokens.
     base = ARCHS["tinyllama-1.1b"].smoke()
@@ -1696,7 +2170,36 @@ def phase_parity(params_full, mamba_full):
         fail("greedy tokens differ between kernel and plain path (mamba2 "
              "fabric)")
 
-    # (c) full width, bf16: last-position prefill logits.
+    # (c) a migrating tinyllama f32 smoke fabric (three paged replicas,
+    # every request on replica 0, which admits them all first): kernel vs
+    # plain greedy tokens and decisions, live landings included.
+    base = ARCHS["tinyllama-1.1b"].smoke()
+    params = init_lm(base, gen, device=DEVICE)
+    mkw = dict(kw, paged=True, block_size=8, max_slots=2)
+    outs = []
+    for impl in ("auto", "ref"):
+        cfg = dataclasses.replace(base, attn_impl=impl, decode_impl=impl)
+        rng = np.random.default_rng(2)
+        reqs = [_smoke_req(rng, i) for i in range(5)]
+        engines = [Engine(cfg, params, replica_id=i, device=DEVICE, **mkw)
+                   for i in range(3)]
+        bal = GLBReplicaBalancer(engines, migrate=True)
+        for r in reqs:
+            bal.submit(r, rr=0)
+        engines[0].step()
+        if bal.run() != "terminated" or not all(r.done for r in reqs):
+            fail(f"parity migrating fabric/{impl}: did not finish")
+        outs.append(([r.out for r in reqs], bal.decisions))
+    same = outs[0] == outs[1]
+    live = sum(d[0] == "live" for d in outs[0][1])
+    log(f"[parity] f32 smoke tinyllama migrating fabric: kernel vs plain "
+        f"greedy tokens and decisions {'identical' if same else 'DIFFER'} "
+        f"({len(outs[0][1])} decisions, {live} live steals: {outs[0][1]})")
+    if not same or live < 1:
+        fail("migrating fabric: kernel and plain paths differ, or no "
+             "live steal happened")
+
+    # (d) full width, bf16: last-position prefill logits.
     _logit_parity(ARCHS["tinyllama-1.1b"], params_full)
     _logit_parity(ARCHS["mamba2-130m"], mamba_full)
 
@@ -1769,16 +2272,19 @@ def main() -> int:
     timed(phase_profile, params)
     mamba, ssd_launches = timed(phase_fabric)
     timed(phase_prefill_profile, mamba)
+    mig_launches = timed(phase_migrate, params)
     rows["uts_expand"], uts_launches = timed(phase_glb)
     timed(phase_parity, params, mamba)
     log(f"[time] all phases: {time.time() - t_start:.1f} s")
     all_steps = sum(steps.values())
     for name in ATTENTION:
-        rows[name]["launches"] = totals[name] + moe_launches[name]
+        mig = mig_launches.get(name, 0)
+        rows[name]["launches"] = totals[name] + moe_launches[name] + mig
         log(f"[summary] {name}: {rows[name]['launches']} launches: "
             f"{totals[name]} over {all_steps} engine steps of the "
             f"tinyllama-1.1b runs ({totals[name] / all_steps:.2f} per "
-            f"step), {moe_launches[name]} over the {MOE} runs")
+            f"step), {moe_launches[name]} over the {MOE} runs, {mig} "
+            "over the migrate phase's three runs")
     rows["gmm"]["launches"] = moe_launches["gmm"]
     log(f"[summary] gmm: {moe_launches['gmm']} launches over the three "
         f"{MOE} runs")

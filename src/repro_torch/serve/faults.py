@@ -1,6 +1,7 @@
 """Fault injection for the GLB fabric — one chaos harness, two workload
-shapes (DESIGN.md §15). A copy of ``repro.serve.faults``; in the port only
-the task executor consults it so far (``core.scheduler.run_sim``).
+shapes (DESIGN.md §15): the serving fabric (``GLBReplicaBalancer``) and the
+task executor (``core.scheduler.run_sim``). A copy of
+``repro.serve.faults``.
 
 The injector models the three failure shapes a distributed GLB deployment
 actually sees, keyed to the superstep clock both schedulers already run on:

@@ -70,6 +70,13 @@ the tables hold garbage past each allocation. Then every cluster size
 the bf16 kernel takes, replay from a CUDA graph with new offsets and
 lengths, the route each dtype takes, one launch per call, and a build
 failure that raises.
+
+Live migration: KV blocks gathered on the card, copied to host memory and
+back and scattered into another pool arrive bit for bit in bf16 and f32,
+with every other block (the sink included) untouched; and a 2-replica
+``tinyllama-1.1b.smoke()`` fabric with ``migrate=True`` lands a live
+sequence, decodes it through ``paged_decode``, terminates, and emits the
+tokens of one engine that kept everything.
 """
 import numpy as np
 import pytest
@@ -791,3 +798,74 @@ def test_attention_tc_build_failure_raises(card, tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc failed"):
         paged_prefill(*args)
     assert ops.kernel_launches()["paged_prefill"] == 0
+
+
+# ------------------------------------------------------- live migration
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kv_block_round_trip_is_bit_exact(card, dtype):
+    """Blocks gathered from one pool on the card, copied to host memory
+    and back, and scattered into other blocks of a second pool, arrive
+    bit for bit; every other block of the second pool, the sink block
+    (index num_blocks) included, is untouched."""
+    from repro_torch.serve.engine import gather_kv, scatter_kv
+
+    L, NB, bs, H, D = 22, 64, 16, 4, 64          # tinyllama-1.1b's pool
+    g = torch.Generator(device="cuda").manual_seed(0)
+    pool = lambda: torch.randn(L, NB + 1, bs, H, D, generator=g,
+                               device="cuda").to(dtype)
+    src, dst = (pool(), pool()), (pool(), pool())
+    keep = tuple(d.clone() for d in dst)
+    ids = torch.tensor([5, 0, 63, 17, 2], device="cuda")
+    to = torch.tensor([9, 40, 1, 63, 33], device="cuda")
+    host = tuple(b.cpu() for b in gather_kv(*src, ids))
+    assert all(b.device.type == "cpu" and b.dtype == dtype for b in host)
+    scatter_kv(*dst, to, *(b.to("cuda") for b in host))
+    torch.cuda.synchronize()
+    rest = torch.ones(NB + 1, dtype=torch.bool, device="cuda")
+    rest[to] = False
+    for s, d, k in zip(src, dst, keep):
+        assert torch.equal(d[:, to], s[:, ids])
+        assert torch.equal(d[:, rest], k[:, rest])
+        assert torch.equal(d[:, NB], k[:, NB])
+
+
+@pytest.mark.cuda
+def test_migrating_fabric_on_the_card(card):
+    """Two paged replicas of tinyllama-1.1b.smoke() on the card: a
+    saturated replica 0 sheds a live sequence, replica 1's next step
+    decodes it through paged_decode, the fabric terminates, and the
+    tokens are those of one engine that kept everything."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import init_lm
+    from repro_torch.serve import Engine, GLBReplicaBalancer, Request
+
+    cfg = ARCHS["tinyllama-1.1b"].smoke()
+    params = init_lm(cfg, torch.Generator(device="cuda").manual_seed(0),
+                     device="cuda")
+    kw = dict(max_slots=2, max_seq=64, pad_len=16, steps_per_sync=4,
+              paged=True, block_size=8)
+    mk = lambda: [Request(rid=i, prompt=[3, i + 1, 4, 7, 2], max_new=20)
+                  for i in range(2)]
+    engines = [Engine(cfg, params, replica_id=i, device="cuda", **kw)
+               for i in range(2)]
+    bal = GLBReplicaBalancer(engines, migrate=True)
+    reqs = mk()
+    for r in reqs:
+        bal.submit(r, rr=0)
+    engines[0].step()
+    assert not bal.balance()
+    assert bal.migration_modes["live"] == 1 and engines[1].load == 1
+    ops.reset_launches()
+    engines[1].step()
+    torch.cuda.synchronize()
+    assert ops.kernel_launches()["paged_decode"] > 0
+    assert bal.run(max_steps=200) == "terminated"
+    assert all(r.done for r in reqs)
+    alone = Engine(cfg, params, device="cuda", **kw)
+    ref = mk()
+    for r in ref:
+        alone.submit(r)
+    while alone.load:
+        alone.step()
+    assert [r.out for r in reqs] == [r.out for r in ref]

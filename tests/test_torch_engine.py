@@ -180,10 +180,26 @@ def test_temperature_sampling_deterministic_in_seed():
 
 
 def test_unported_options_raise():
+    """The cost model, the SLO monitor and SLO-aware admission are
+    ported: the engine takes them, and refuses what the reference
+    refuses with its ValueError (SLO-aware admission without the paged
+    scheduler or without a monitor)."""
+    from repro_torch.obs import SLOMonitor, parse_slo_spec
+    from repro_torch.serve import CostModel
+
     cfg, params, _ = setup("tinyllama-1.1b")
-    for kw in (dict(cost_model=object()), dict(slo=object()),
-               dict(paged=True, slo_admission=True)):
-        with pytest.raises(NotImplementedError):
+    slo = SLOMonitor(parse_slo_spec("ttft_ms=1000"))
+    cm = CostModel()
+    e = Engine(cfg, params, device="cpu", paged=True, block_size=8,
+               cost_model=cm, slo=slo, slo_admission=True, **KW)
+    assert e.cost_model is cm and e.slo is e.sched.slo is slo
+    reqs = _treqs(2, 4)
+    _run(e, reqs)
+    assert cm.snapshot()["cost_samples"] == 2
+    assert slo.attainment()["ttft_ms"]["total"] == 2
+    for kw in (dict(slo=slo, slo_admission=True),
+               dict(paged=True, block_size=8, slo_admission=True)):
+        with pytest.raises(ValueError):
             Engine(cfg, params, device="cpu", **kw)
     with pytest.raises(ValueError):
         Engine(cfg, params, device="cpu").submit(

@@ -179,12 +179,21 @@ def test_balancer_default_candidates_and_unported_options():
     bal, reqs = _fabric(Engine, GLBReplicaBalancer, Request, tcfg, tp, 3, 9)
     assert bal.run(max_steps=300) == "terminated"
     assert all(r.done for r in reqs) and bal.queue_moves > 0
+    # Tier 2, faults, the cost model and the SLO monitor are ported: the
+    # balancer takes them; predictive balancing without a cost model is
+    # refused with the reference's ValueError.
+    from repro_torch.obs import SLOMonitor, parse_slo_spec
+    from repro_torch.serve import CostModel, FaultInjector
+
     e = [Engine(tcfg, tp, device="cpu", **KW)]
-    for kw in (dict(migrate=True), dict(faults=object()),
-               dict(cost_model=object()), dict(predictive=True),
-               dict(slo=object())):
-        with pytest.raises(NotImplementedError):
-            GLBReplicaBalancer(e, **kw)
+    slo = SLOMonitor(parse_slo_spec("ttft_ms=1000"))
+    cm = CostModel()
+    bal = GLBReplicaBalancer(e, migrate=True, faults=FaultInjector(),
+                             cost_model=cm, predictive=True, slo=slo)
+    assert e[0].cost_model is cm and e[0].slo is slo
+    assert bal.migrate and bal.predictive and bal.alive == [True]
+    with pytest.raises(ValueError, match="cost_model"):
+        GLBReplicaBalancer(e, predictive=True)
     wedge = GLBReplicaBalancer(e)
     wedge.submit(Request(rid=0, prompt=[1, 2], max_new=40))
     assert wedge.run(max_steps=2) == "wedged"

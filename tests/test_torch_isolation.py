@@ -59,7 +59,9 @@ def test_importing_every_module_loads_no_jax():
               "repro_torch.problems.uts", "repro_torch.kernels.uts_expand",
               "repro_torch.models.moe", "repro_torch.models.glb_moe",
               "repro_torch.kernels.moe_gmm",
-              "repro_torch.configs.moonshot_v1_16b_a3b"):
+              "repro_torch.configs.moonshot_v1_16b_a3b",
+              "repro_torch.serve.cost", "repro_torch.obs.slo",
+              "repro_torch.obs.flight", "repro_torch.obs.analyze"):
         assert m in mods, m
     assert len(mods) > 20
     code = (
