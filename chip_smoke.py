@@ -12,8 +12,8 @@ Phases, in order; any failure exits non-zero:
   3. kernels — each of the four attention kernels against its plain
                PyTorch version at the serving path's full-width shapes
                (tinyllama-1.1b: 32 query heads, 4 KV heads, head dim 64;
-               for each also moonshot-v1-16b-a3b's, 16/16 heads of 128)
-               in bf16 and f32,
+               for each also moonshot-v1-16b-a3b's, 16/16 heads of 128,
+               and zamba2-7b's, 32/32 heads of 112) in bf16 and f32,
                plus edge cases (idle slot, garbage table entries, ragged
                tail, mid-block q_offset, a sequence of length 0); the
                bf16 kernels of the four are timed beside the CUDA-core
@@ -21,11 +21,12 @@ Phases, in order; any failure exits non-zero:
                tinyllama's 64-token chunk and at moonshot's);
                ssd_chunked against ssd_chunked_ref (and ssd_ref) at the
                mamba2-130m prefill shape and its 1024-token bucket (16
-               chunks), in bf16 and f32 x, plus edge cases (two rows, T
+               chunks) and at zamba2-7b's layer (112 heads of 64, state
+               64), in bf16 and f32 x, plus edge cases (two rows, T
                shorter than the chunk, chunk 16 at N 256, two rows of 512,
                a ragged T that must raise), each with its launch plan,
-               timed at both buckets beside the first version of its
-               kernel (ssd_chunked_loop_kernel). Times each
+               timed at both buckets and zamba2's beside the first
+               version of its kernel (ssd_chunked_loop_kernel). Times each
                kernel, its plain version and, for attention,
                scaled_dot_product_attention on the same work (a yardstick
                only: the port never calls it), replayed from a CUDA graph
@@ -91,6 +92,27 @@ Phases, in order; any failure exits non-zero:
                launch over the three runs. The serve phase's profile also
                prints the card's own service times per prefill and decode
                token beside the cost model's defaults.
+  5c. zoo    — the rest of the model zoo at full width, random bf16
+               weights made on the card from a seed, one model at a time
+               (each freed before the next): zamba2-7b (hybrid: 81
+               Mamba2 layers of 112 SSM heads and one weight-shared
+               attention + MLP block applied 13 times, 32/32 heads of
+               112) serving 16 requests contiguous and paged, with
+               ssd_chunked, flash_attention and the mode's decode kernel
+               launched, one decode step and one admission profiled, and
+               every layer held to the plain path on the plain path's
+               hidden states (5% of its range) with the whole paths'
+               argmax equal; mistral-nemo-12b (32/8 heads of 128) serving
+               16 requests through the paged engine (flash_attention,
+               paged_decode) and through it with the prefix cache and
+               64-token chunks (paged_prefill, paged_decode), its
+               last-position logits held to the plain path's (5%); qwen2-vl-2b (merged embeddings of a
+               text + 8 x 16-patch image prompt with three M-RoPE position
+               streams) and musicgen-medium (four codebook streams), each
+               through lm.prefill of 256 positions and 32 greedy
+               decode_steps, every step's last-position logits within 5%
+               of the plain path's fed the same tokens. Peak memory of
+               each.
   6. glb     — the GLB task executor. uts_expand against uts_expand_ref,
                bit for bit, at the UTS path's shape (1024 nodes x 256
                lanes) and edge shapes (odd widths, a threshold table that
@@ -108,10 +130,13 @@ Phases, in order; any failure exits non-zero:
                plain expansion, which must agree in every number.
   7. parity  — kernel path vs plain path end to end: identical greedy
                tokens on the f32 smoke configs (tinyllama in every engine
-               mode, the mamba2 fabric, and a migrating tinyllama fabric
+               mode, the mamba2 fabric, a migrating tinyllama fabric
                of three paged replicas, whose decisions, live steals
-               included, must be identical too), and close last-position
-               prefill logits at full width (both models).
+               included, must be identical too, zamba2 at 4 layers with
+               two applications of its shared block in both engine modes,
+               and qwen2-vl and musicgen through lm.prefill and 16
+               decode_steps), and close last-position prefill logits at
+               full width (tinyllama and mamba2).
 The last two lines of standard output are one JSON object with each
 kernel's numbers and the contract line {"ok": true, "device": {...}}.
 """
@@ -350,7 +375,9 @@ def _cuda_core_prefill(q, kp, vp, tables, lengths, offsets):
 
 
 # Timed cases of phase 3 (bf16); "main" gives each kernel's summary row.
-TIMED = ("main", "moonshot")
+TIMED = ("main", "moonshot", "zamba2")
+# zamba2-7b's shared attention block: 32/32 heads of 3584 / 32 = 112.
+ZAMBA_HEADS = (32, 32, 112)
 
 
 def kernel_cases(dtype_name: str, rng):
@@ -381,6 +408,7 @@ def kernel_cases(dtype_name: str, rng):
     for label, B, Sq, Skv, causal, (hq, hkv, d) in (
             ("main", 1, 256, 256, True, (Hq, Hkv, D)),
             ("moonshot", 1, 256, 256, True, (16, 16, 128)),
+            ("zamba2", 1, 256, 256, True, ZAMBA_HEADS),
             ("ragged", 2, 77, 77, True, (Hq, Hkv, D)),
             ("noncausal", 1, 40, 96, False, (Hq, Hkv, D))):
         q, k, v = rnd(B, Sq, hq, d), rnd(B, Skv, hkv, d), rnd(B, Skv, hkv, d)
@@ -408,6 +436,7 @@ def kernel_cases(dtype_name: str, rng):
     for label, lens, (hq, hkv, d) in (
             ("main", rng.integers(100, 385, 8), (Hq, Hkv, D)),
             ("moonshot", rng.integers(100, 385, 8), (16, 16, 128)),
+            ("zamba2", rng.integers(100, 385, 8), ZAMBA_HEADS),
             ("idle", [0, 1, 700, 1024, 0, 64, 65, 3], (Hq, Hkv, D))):
         B = len(lens)
         q, k, v = rnd(B, 1, hq, d), rnd(B, S, hkv, d), rnd(B, S, hkv, d)
@@ -436,6 +465,7 @@ def kernel_cases(dtype_name: str, rng):
     for label, lens, garbage, (hq, hkv, d) in (
             ("main", rng.integers(100, 385, 8), False, (Hq, Hkv, D)),
             ("moonshot", rng.integers(100, 385, 8), False, (16, 16, 128)),
+            ("zamba2", rng.integers(100, 385, 8), False, ZAMBA_HEADS),
             ("idle+garbage", [0, 17, 1024, 300, 0, 16, 1, 999], True,
              (Hq, Hkv, D))):
         B = len(lens)
@@ -473,6 +503,7 @@ def kernel_cases(dtype_name: str, rng):
     for label, offs, Sq, tails, garbage, (hq, hkv, d) in (
             ("main", [128], CHUNK, [0], False, (Hq, Hkv, D)),
             ("moonshot", [128], CHUNK, [0], False, (16, 16, 128)),
+            ("zamba2", [128], CHUNK, [0], False, ZAMBA_HEADS),
             ("midblock", [37, 200], 50, [0, 0], False, (Hq, Hkv, D)),
             ("one-token", [300, 5], 1, [0, 0], True, (Hq, Hkv, D)),
             ("padded-tail", [16, 90], 24, [9, 9], True, (Hq, Hkv, D)),
@@ -577,6 +608,9 @@ def phase_kernels():
 # bucket a prompt of 769-1024 tokens takes at max_seq 1024 (16 chunks).
 SSD_MAIN = dict(Bt=1, T=256, H=24, P=64, N=128)
 SSD_LONG = dict(SSD_MAIN, T=1024)
+# zamba2-7b's Mamba2 layer on its 256-token bucket: d_inner 7168 in 112
+# heads of 64, state 64.
+SSD_ZAMBA = dict(SSD_MAIN, H=112, N=64)
 SSD_CHUNK = 64
 
 
@@ -646,7 +680,9 @@ def kernel_ssd(rng):
              ("chunk16-N256", "bfloat16", dict(SSD_MAIN, N=256), 16),
              ("chunk16-N256", "float32", dict(SSD_MAIN, N=256), 16),
              ("two-rows-512", "bfloat16", dict(SSD_MAIN, Bt=2, T=512),
-              SSD_CHUNK))
+              SSD_CHUNK),
+             ("zamba2", "bfloat16", SSD_ZAMBA, SSD_CHUNK),
+             ("zamba2", "float32", SSD_ZAMBA, SSD_CHUNK))
     row = None
     for label, dtype_name, shp, chunk in cases:
         args = _ssd_inputs(rng, getattr(torch, dtype_name), **shp)
@@ -678,7 +714,8 @@ def kernel_ssd(rng):
             if not ok:
                 fail(f"ssd_chunked/{label}/{dtype_name} disagrees with "
                      f"{ref_name}: y {ey}, h {eh}")
-        if label not in ("main", "T1024") or dtype_name != "bfloat16":
+        if label not in ("main", "T1024", "zamba2") or \
+                dtype_name != "bfloat16":
             continue
         # The first version of the kernel (chunks in order, CUDA cores),
         # replaced: held to the same limits, timed in the same run.
@@ -1247,23 +1284,14 @@ def phase_profile(params):
         for _ in range(2):
             eng.step()
         torch.cuda.synchronize()
-    kinds = {"attention kernels": 0.0, "matmul": 0.0, "copies": 0.0,
-             "other": 0.0}
+    kinds = dict.fromkeys(KINDS, 0.0)
     by_name = {}
     count = 0
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
-        name = e.name.lower()
-        kind = ("attention kernels" if any(k in name for k in
-                                           ATTENTION_KERNELS)
-                else "matmul" if any(s in name for s in (
-                    "gemm", "gemv", "splitk", "nvjet", "xmma", "cutlass",
-                    "cublas"))
-                else "copies" if name.startswith(("memcpy", "memset"))
-                else "other")
         ms = e.time_range.elapsed_us() / 1e3 / 2
-        kinds[kind] += ms
+        kinds[_kind(e.name)] += ms
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 0.5, t + ms)
         count += 1
@@ -1844,6 +1872,352 @@ def phase_migrate(params):
     return launches
 
 
+# ------------------------------------------------------------ phase 5c
+# The rest of the model zoo at full width, one model on the card at a
+# time: zamba2-7b (hybrid: 81 Mamba2 layers, one shared attention + MLP
+# block applied 13 times, 32/32 heads of 112) through the engine in both
+# cache layouts; mistral-nemo-12b (dense, 32/8 heads of 128) through the
+# paged engine with the prefix cache and chunked prefill; qwen2-vl-2b
+# (M-RoPE over merged embeddings) and musicgen-medium (4 codebooks)
+# through lm.prefill and decode_step.
+ZOO_HYBRID = "zamba2-7b"
+ZOO_DENSE = "mistral-nemo-12b"
+ZOO_VLM = "qwen2-vl-2b"
+ZOO_AUDIO = "musicgen-medium"
+ZOO_KERNELS = ("flash_attention", "flash_decode", "paged_decode",
+               "paged_prefill", "ssd_chunked")
+ZOO_HYBRID_MODES = {"contiguous": ("ssd_chunked", "flash_attention",
+                                   "flash_decode"),
+                    "paged": ("ssd_chunked", "flash_attention",
+                              "paged_decode")}
+ZOO_DECODE_STEPS = 32
+ZOO_PROMPT = 256
+# qwen2-vl's merged prompt: 64 text tokens, an image of 8 x 16 patches
+# (128 tokens) at one temporal index, then 64 text tokens.
+ZOO_IMAGE = dict(start=64, rows=8, cols=16)
+
+
+def _zoo_weights(name):
+    """init_lm at full width on the card from seed 0; logs the size."""
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import init_lm
+
+    cfg = ARCHS[name]
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    t0 = time.time()
+    params = init_lm(cfg, gen, device=DEVICE)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    log(f"[zoo] {cfg.name} [{cfg.family}]: {cfg.n_layers} layers d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, "
+        f"{n / 1e9:.3f} B parameters made ({cfg.param_count() / 1e9:.2f} B "
+        f"by param_count()), {cfg.dtype}: {nbytes / 1e9:.2f} GB of weights "
+        f"({torch.cuda.memory_allocated() / 1e9:.2f} GB allocated on the "
+        f"card in all), made there in {time.time() - t0:.1f} s")
+    return cfg, params
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _zoo_free(cfg, params):
+    import gc
+
+    import torch
+
+    log(f"[zoo] {cfg.name}: peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; freeing the "
+        "weights")
+    params.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _zoo_serve(cfg, params, tag, kw, want, totals):
+    """16 requests through one engine; every request must finish with
+    valid ids and every kernel of ``want`` must launch."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serve import Engine
+
+    reqs = _requests(np.random.default_rng(1), cfg.vocab)
+    eng = Engine(cfg, params, device=DEVICE, **SERVE, **kw)
+    torch.cuda.synchronize()
+    ops.reset_launches()                   # counts of this run only
+    t0 = time.time()
+    n = _serve(eng, reqs)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = ops.kernel_launches()
+    if not all(r.done for r in reqs):
+        fail(f"zoo {cfg.name} {tag}: {sum(not r.done for r in reqs)} "
+             f"requests unfinished after {n} steps")
+    for r in reqs:
+        if not r.out or min(r.out) < 0 or max(r.out) >= cfg.vocab:
+            fail(f"zoo {cfg.name} {tag}: request {r.rid} emitted bad ids")
+    st = eng.stats()
+    toks = st["tokens_out"]
+    log(f"[zoo] {cfg.name} {tag}: {len(reqs)} requests, {toks} tokens in "
+        f"{wall:.2f} s = {toks / wall:.1f} tok/s; TTFT p50 "
+        f"{st['ttft_ms_p50']:.1f} ms p99 {st['ttft_ms_p99']:.1f} ms; "
+        f"{st['steps']} engine steps; launches {counts}")
+    for name in want:
+        if counts[name] <= 0:
+            fail(f"zoo {cfg.name} {tag}: kernel {name} was never launched")
+    for name in ZOO_KERNELS:
+        totals[name] += counts[name]
+    return eng
+
+
+# Device records by kind, as the profiles report them.
+KINDS = ("ssd_chunked", "attention kernels", "matmul", "copies", "other")
+
+
+def _kind(name):
+    name = name.lower()
+    if "ssd_chunked" in name:
+        return "ssd_chunked"
+    if any(k in name for k in ATTENTION_KERNELS):
+        return "attention kernels"
+    if any(s in name for s in ("gemm", "gemv", "splitk", "nvjet", "xmma",
+                               "cutlass", "cublas")):
+        return "matmul"
+    if name.startswith(("memcpy", "memset")):
+        return "copies"
+    return "other"
+
+
+def _zoo_profile(cfg, params):
+    """One engine step of contiguous decode with every slot busy (8 token
+    iterations a slot) on the host clock and another under
+    torch.profiler: device busy and its shares by kind (a decode step runs
+    the Mamba2 recurrence one token at a time, so ssd_chunked takes no
+    part in it). Then one admission (a 256-token bucket) under the
+    profiler: ssd_chunked's share of the prefill."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve import Engine
+
+    eng = Engine(cfg, params, device=DEVICE, **SERVE)
+    reqs = _requests(np.random.default_rng(4), cfg.vocab,
+                     n=SERVE["max_slots"] + 1)
+    for r in reqs[:-1]:
+        r.max_new = 128                # nobody finishes inside the window
+        eng.submit(r)
+    eng.step()                         # admits every slot; warm-up
+    torch.cuda.synchronize()
+    t0 = time.time()
+    eng.step()
+    torch.cuda.synchronize()
+    wall = (time.time() - t0) * 1e3
+
+    def kinds_of(prof):
+        kinds = dict.fromkeys(KINDS, 0.0)
+        records = 0
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            kinds[_kind(e.name)] += e.time_range.elapsed_us() / 1e3
+            records += 1
+        return kinds, records
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        eng.step()
+        torch.cuda.synchronize()
+        wall_prof = (time.time() - t0) * 1e3
+    kinds, records = kinds_of(prof)
+    busy = sum(kinds.values()) or float("nan")
+    if records == 0 or kinds["attention kernels"] <= 0:
+        fail(f"zoo {cfg.name} profile: {records} device records, "
+             f"attention {kinds['attention kernels']} ms")
+    log(f"[zoo] {cfg.name} contiguous decode, {SERVE['max_slots']} busy "
+        f"slots: {wall:.2f} ms per engine step "
+        f"({SERVE['steps_per_sync']} tokens per slot) on the host clock; "
+        f"profiled step {wall_prof:.2f} ms: device busy {busy:.2f} ms = "
+        f"{100 * busy / wall:.1f}% of the step in {records} records; by "
+        "kind (ms per step, share of the device time): "
+        + ", ".join(f"{k} {v:.3f} ({100 * v / busy:.1f}%)"
+                    for k, v in kinds.items()))
+    slot = next(i for i, r in enumerate(eng.slots) if r is not None)
+    eng.slots[slot] = None             # free one slot for an admission
+    eng.lens[slot] = -1
+    eng.submit(reqs[-1])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        with torch.inference_mode():
+            eng._admit()
+        torch.cuda.synchronize()
+        wall_adm = (time.time() - t0) * 1e3
+    kinds, records = kinds_of(prof)
+    busy = sum(kinds.values()) or float("nan")
+    if kinds["ssd_chunked"] <= 0:
+        fail(f"zoo {cfg.name}: the profiled admission ran no ssd_chunked")
+    log(f"[zoo] {cfg.name} one admission ({SERVE['pad_len']}-token "
+        f"bucket) under the profiler: {wall_adm:.2f} ms on the host clock; "
+        f"device busy {busy:.3f} ms in {records} records; by kind: "
+        + ", ".join(f"{k} {v:.3f} ({100 * v / busy:.1f}%)"
+                    for k, v in kinds.items()))
+
+
+def _mrope_positions(S, a=ZOO_IMAGE["start"], rows=ZOO_IMAGE["rows"],
+                     cols=ZOO_IMAGE["cols"]):
+    """(1, S, 3) positions of a merged prompt: a text tokens, an image of
+    rows x cols patches that share one temporal index and take their row
+    and column on the h and w streams, then text from the image's
+    largest index on."""
+    import numpy as np
+
+    n = rows * cols
+    pos = np.zeros((1, S, 3), np.int32)
+    pos[0, :a] = np.arange(a)[:, None]
+    i = np.arange(n)
+    pos[0, a:a + n] = np.stack([np.full(n, a), a + i // cols,
+                                a + i % cols], axis=-1)
+    pos[0, a + n:] = (a + max(rows, cols) + np.arange(S - a - n))[:, None]
+    return pos
+
+
+def _zoo_generate(cfg, params, batch, totals):
+    """lm.prefill of ``batch`` and ZOO_DECODE_STEPS greedy decode_steps
+    through the kernels, then the plain path fed the same inputs and
+    tokens: the last-position logits of the prefill and of every decode
+    step within 5% of the logit range; both paths' tokens printed.
+    Returns the kernel path's launches."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import decode_step, prefill
+
+    K = cfg.n_codebooks
+    shape = (1, 1, K) if K else (1, 1)
+    max_seq = ZOO_PROMPT + ZOO_DECODE_STEPS
+    logits, toks, argmax = {}, None, {}
+    for impl in ("auto", "ref"):
+        icfg = _impl_cfg(cfg, impl)
+        ops.reset_launches()
+        steps, own = [], []
+        with torch.inference_mode():
+            lg, cache = prefill(params, icfg, batch, max_seq)
+            lg = lg[:, -1, ..., :cfg.vocab].float()
+            for t in range(ZOO_DECODE_STEPS):
+                steps.append(lg)
+                own.append(lg.argmax(-1).reshape(-1).tolist())
+                tok = (own[-1] if impl == "auto" else toks[t])
+                lens = torch.full((1,), ZOO_PROMPT + t, dtype=torch.int32,
+                                  device=DEVICE)
+                lg, cache = decode_step(
+                    params, icfg, torch.as_tensor(tok, dtype=torch.int32,
+                                                  device=DEVICE).reshape(
+                                                      shape), cache, lens)
+                lg = lg[:, -1, ..., :cfg.vocab].float()
+            steps.append(lg)
+        torch.cuda.synchronize()
+        if impl == "auto":
+            counts = ops.kernel_launches()
+            toks = own
+        logits[impl], argmax[impl] = steps, own
+    worst = 0.0
+    for t, (a, b) in enumerate(zip(logits["auto"], logits["ref"])):
+        if not torch.isfinite(a).all():
+            fail(f"zoo {cfg.name}: non-finite logits at step {t}")
+        share = (a - b).abs().max().item() / b.abs().max().item()
+        worst = max(worst, share)
+    agree = sum(x == y for x, y in zip(argmax["auto"], argmax["ref"]))
+    log(f"[zoo] {cfg.name}: prefill of {ZOO_PROMPT} positions + "
+        f"{ZOO_DECODE_STEPS} greedy decode steps; kernel vs plain (the "
+        f"plain path fed the kernel path's tokens): largest last-position "
+        f"logit error {100 * worst:.3f}% of max |logit| (tol 5%) "
+        f"{'ok' if worst <= 0.05 else 'MISMATCH'}; argmax equal at "
+        f"{agree} of {ZOO_DECODE_STEPS} steps; launches {counts}")
+    log(f"[zoo] {cfg.name} kernel tokens: {argmax['auto']}")
+    log(f"[zoo] {cfg.name} plain argmax: {argmax['ref']}")
+    if worst > 0.05:
+        fail(f"zoo {cfg.name}: kernel and plain logits disagree")
+    for name in ZOO_KERNELS:
+        totals[name] += counts[name]
+    return counts
+
+
+def phase_zoo():
+    """zamba2-7b, mistral-nemo-12b, qwen2-vl-2b and musicgen-medium at full
+    width, one at a time. Returns each kernel's launches over the zoo's
+    serving and generation runs."""
+    import numpy as np
+    import torch
+
+    totals = dict.fromkeys(ZOO_KERNELS, 0)
+
+    # (a) zamba2-7b through the engine, contiguous and paged.
+    cfg, params = _zoo_weights(ZOO_HYBRID)
+    log(f"[zoo] {cfg.name}: {cfg.ssm_heads} SSM heads of "
+        f"{cfg.ssm_headdim}, state {cfg.ssm_state}; the shared block after "
+        f"layers {cfg.attn_every - 1}, {2 * cfg.attn_every - 1}, ...: "
+        f"{cfg.n_layers // cfg.attn_every} applications, each on its own "
+        "k/v cache layer")
+    for mode, want in ZOO_HYBRID_MODES.items():
+        kw = dict(paged=True, block_size=BLOCK) if mode == "paged" else {}
+        _zoo_serve(cfg, params, mode, kw, want, totals)
+    _zoo_profile(cfg, params)
+    _mixer_parity(cfg, params)
+    _zoo_free(cfg, params)
+
+    # (b) mistral-nemo-12b: paged (whole prompts through flash_attention),
+    # then paged with the prefix cache and 64-token chunks (every prompt
+    # through paged_prefill).
+    cfg, params = _zoo_weights(ZOO_DENSE)
+    _zoo_serve(cfg, params, "paged", MODES["paged"],
+               ("flash_attention", "paged_decode"), totals)
+    _zoo_serve(cfg, params, "paged+prefix+chunk",
+               MODES["paged+prefix+chunk"], ("paged_prefill",
+                                             "paged_decode"), totals)
+    _logit_parity(cfg, params)
+    _zoo_free(cfg, params)
+
+    # (c) qwen2-vl-2b: merged embeddings with three position streams.
+    cfg, params = _zoo_weights(ZOO_VLM)
+    rng = np.random.default_rng(8)
+    emb = torch.from_numpy(rng.standard_normal(
+        (1, ZOO_PROMPT, cfg.d_model)).astype(np.float32)).to(DEVICE)
+    pos = torch.as_tensor(_mrope_positions(ZOO_PROMPT), device=DEVICE)
+    c = _zoo_generate(cfg, params, {"embeds": emb, "positions": pos},
+                      totals)
+    if not (c["flash_attention"] and c["flash_decode"]):
+        fail(f"zoo {cfg.name}: attention kernels not launched: {c}")
+    _zoo_free(cfg, params)
+
+    # (d) musicgen-medium: four codebook streams.
+    cfg, params = _zoo_weights(ZOO_AUDIO)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (
+        1, ZOO_PROMPT, cfg.n_codebooks)), dtype=torch.int32, device=DEVICE)
+    c = _zoo_generate(cfg, params, {"tokens": toks}, totals)
+    if not (c["flash_attention"] and c["flash_decode"]):
+        fail(f"zoo {cfg.name}: attention kernels not launched: {c}")
+    _zoo_free(cfg, params)
+    log(f"[zoo] launches over the zoo's runs: {totals}")
+    return totals
+
+
 # ------------------------------------------------------------ phase 6
 # The UTS path: P = 1024 places, each loop iteration expands one node per
 # place at width n = 256 (gen_width 0).
@@ -2199,7 +2573,73 @@ def phase_parity(params_full, mamba_full):
         fail("migrating fabric: kernel and plain paths differ, or no "
              "live steal happened")
 
-    # (d) full width, bf16: last-position prefill logits.
+    # (d) the zamba2 f32 smoke config at 4 layers, the shared block after
+    # every second (k/v cache layers 0 and 1), in both engine modes:
+    # kernel vs plain greedy tokens.
+    base = dataclasses.replace(ARCHS["zamba2-7b"].smoke(), n_layers=4,
+                               attn_every=2)
+    params = init_lm(base, gen, device=DEVICE)
+    for mode in ("contiguous", "paged"):
+        outs = []
+        for impl in ("auto", "ref"):
+            cfg = dataclasses.replace(base, attn_impl=impl, decode_impl=impl)
+            rng = np.random.default_rng(2)
+            reqs = [_smoke_req(rng, i) for i in range(8)]
+            eng = Engine(cfg, params, device=DEVICE, **kw, **modes[mode])
+            _serve(eng, reqs)
+            if not all(r.done for r in reqs):
+                fail(f"parity zamba2 {mode}/{impl}: unfinished requests")
+            outs.append([r.out for r in reqs])
+        same = outs[0] == outs[1]
+        log(f"[parity] f32 smoke zamba2 (4 layers, shared block every 2) "
+            f"{mode}: kernel vs plain greedy tokens "
+            f"{'identical' if same else 'DIFFER'}")
+        if not same:
+            fail(f"greedy tokens differ between kernel and plain path "
+                 f"(zamba2 {mode})")
+
+    # (e) the qwen2-vl and musicgen f32 smoke configs through lm.prefill
+    # and decode_step: kernel vs plain greedy tokens.
+    from repro_torch.models import decode_step, prefill
+
+    rng = np.random.default_rng(9)
+    for name in ("qwen2-vl-2b", "musicgen-medium"):
+        base = ARCHS[name].smoke()
+        params = init_lm(base, gen, device=DEVICE)
+        K, S = base.n_codebooks, 24
+        if base.mrope:
+            batch = {"embeds": torch.from_numpy(rng.standard_normal(
+                (2, S, base.d_model)).astype(np.float32)).to(DEVICE),
+                "positions": torch.as_tensor(np.repeat(
+                    _mrope_positions(S, 4, 2, 4), 2, axis=0),
+                    device=DEVICE)}
+        else:
+            batch = {"tokens": torch.as_tensor(rng.integers(
+                0, base.vocab, (2, S, K)), dtype=torch.int32,
+                device=DEVICE)}
+        outs = []
+        for impl in ("auto", "ref"):
+            cfg = _impl_cfg(base, impl)
+            with torch.inference_mode():
+                lg, cache = prefill(params, cfg, batch, S + 16)
+                toks = []
+                for t in range(16):
+                    tok = lg[:, -1, ..., :base.vocab].argmax(-1).to(
+                        torch.int32)
+                    toks.append(tok.tolist())
+                    lg, cache = decode_step(
+                        params, cfg, tok.reshape((2, 1, K) if K else (2, 1)),
+                        cache, torch.full((2,), S + t, dtype=torch.int32,
+                                          device=DEVICE))
+            outs.append(toks)
+        same = outs[0] == outs[1]
+        log(f"[parity] f32 smoke {name} prefill + 16 greedy decode steps: "
+            f"kernel vs plain tokens {'identical' if same else 'DIFFER'}")
+        if not same:
+            fail(f"greedy tokens differ between kernel and plain path "
+                 f"({name})")
+
+    # (f) full width, bf16: last-position prefill logits.
     _logit_parity(ARCHS["tinyllama-1.1b"], params_full)
     _logit_parity(ARCHS["mamba2-130m"], mamba_full)
 
@@ -2233,6 +2673,79 @@ def _logit_parity(cfg, params):
         f"{int(lg['auto'].argmax())} vs {int(lg['ref'].argmax())}")
     if not ok:
         fail(f"{cfg.name}: full-width prefill logits disagree")
+
+
+def _mixer_parity(cfg, params):
+    """Kernel vs plain path of the hybrid family at full width, bf16, on
+    _logit_parity's prompt. At every layer, on the plain path's hidden
+    state, the Mamba2 mixer's output (ssd_chunked's) and, where the shared
+    block follows, its attention's output (flash_attention's) are computed
+    both ways and held to 5% of the plain output's max |value|, the limit
+    _logit_parity holds logits to. Each mixer's own output is held, not
+    the layer's: the residual stream would dilute a fault in it. Then the
+    last-position logits of the two whole paths, whose argmax must agree,
+    their largest difference printed. The whole paths are not held to 5%:
+    at zamba2-7b's 81 layers the two bf16 routes round apart by more than
+    that, and each is farther still from the float32 function
+    (tools/zoo_logits.py). tools/zoo_fault.py plants kernel faults that
+    this check must catch."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import apply_layer, embed_tokens, lm_logits
+    from repro_torch.models.attention import attn_fwd
+    from repro_torch.models.layers import mlp_fwd, rmsnorm
+    from repro_torch.models.mamba2 import mamba_fwd
+
+    rng = np.random.default_rng(3)
+    toks = torch.as_tensor(rng.integers(1, cfg.vocab, (1, 256)),
+                           dtype=torch.int32, device=DEVICE)
+    pos = torch.arange(256, dtype=torch.int32, device=DEVICE)[None]
+    kern, plain = _impl_cfg(cfg, "auto"), _impl_cfg(cfg, "ref")
+    eps, sp = cfg.norm_eps, params["shared"]
+    worst = {"mamba": (0.0, 0), "attention": (0.0, 0)}
+
+    def held(mixer, li, want, got):
+        if not torch.isfinite(got).all():
+            fail(f"{cfg.name}: layer {li}'s {mixer} output is not finite")
+        share = ((got.float() - want.float()).abs().max()
+                 / want.float().abs().max()).item()
+        if share > worst[mixer][0]:
+            worst[mixer] = (share, li)
+
+    with torch.inference_mode():
+        x = xk = embed_tokens(params, cfg, toks)
+        for li in range(cfg.n_layers):
+            bp = params["blocks"][li]
+            u = rmsnorm(x, bp["ln"], eps)
+            h = mamba_fwd(bp["mamba"], u, plain)[0]
+            held("mamba", li, h, mamba_fwd(bp["mamba"], u, kern)[0])
+            x = x + h
+            if (li + 1) % cfg.attn_every == 0:
+                u = rmsnorm(x, sp["ln1"], eps)
+                h = attn_fwd(sp["attn"], u, pos, plain)[0]
+                held("attention", li, h, attn_fwd(sp["attn"], u, pos,
+                                                  kern)[0])
+                x = x + h
+                x = x + mlp_fwd(sp["mlp"], rmsnorm(x, sp["ln2"], eps))
+            xk, _ = apply_layer(params, kern, li, xk, pos)
+        lg = {name: lm_logits(params, cfg, rmsnorm(
+            hs, params["final_ln"], eps))[0, -1].float()
+              for name, hs in (("auto", xk), ("ref", x))}
+    err = (lg["auto"] - lg["ref"]).abs().max().item()
+    scale = lg["ref"].abs().max().item()
+    top = (int(lg["auto"].argmax()), int(lg["ref"].argmax()))
+    ok = max(w for w, _ in worst.values()) <= 0.05 and top[0] == top[1]
+    (wm, at_m), (wa, at_a) = worst["mamba"], worst["attention"]
+    log(f"[parity] {cfg.name} full-width bf16, each mixer on the plain "
+        f"path's hidden states: largest difference {100 * wm:.3f}% of the "
+        f"Mamba2 output's max |value| (layer {at_m}), {100 * wa:.3f}% of "
+        f"the shared attention's (after layer {at_a}); tol 5%; whole paths' "
+        f"last-position logits: max_abs_err {err:.4e} vs max |logit| "
+        f"{scale:.4e} ({100 * err / scale:.2f}%), argmax {top[0]} vs "
+        f"{top[1]} {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail(f"{cfg.name}: full-width kernel and plain paths disagree")
 
 
 def _smoke_req(rng, i):
@@ -2273,24 +2786,29 @@ def main() -> int:
     mamba, ssd_launches = timed(phase_fabric)
     timed(phase_prefill_profile, mamba)
     mig_launches = timed(phase_migrate, params)
+    zoo_launches = timed(phase_zoo)
     rows["uts_expand"], uts_launches = timed(phase_glb)
     timed(phase_parity, params, mamba)
     log(f"[time] all phases: {time.time() - t_start:.1f} s")
     all_steps = sum(steps.values())
     for name in ATTENTION:
         mig = mig_launches.get(name, 0)
-        rows[name]["launches"] = totals[name] + moe_launches[name] + mig
+        rows[name]["launches"] = (totals[name] + moe_launches[name] + mig
+                                  + zoo_launches[name])
         log(f"[summary] {name}: {rows[name]['launches']} launches: "
             f"{totals[name]} over {all_steps} engine steps of the "
             f"tinyllama-1.1b runs ({totals[name] / all_steps:.2f} per "
             f"step), {moe_launches[name]} over the {MOE} runs, {mig} "
-            "over the migrate phase's three runs")
+            f"over the migrate phase's three runs, {zoo_launches[name]} "
+            "over the zoo phase's runs")
     rows["gmm"]["launches"] = moe_launches["gmm"]
     log(f"[summary] gmm: {moe_launches['gmm']} launches over the three "
         f"{MOE} runs")
-    rows["ssd_chunked"]["launches"] = ssd_launches
-    log(f"[summary] ssd_chunked: {ssd_launches} launches in the "
-        "mamba2-130m fabric run")
+    rows["ssd_chunked"]["launches"] = ssd_launches + zoo_launches[
+        "ssd_chunked"]
+    log(f"[summary] ssd_chunked: {rows['ssd_chunked']['launches']} "
+        f"launches: {ssd_launches} in the mamba2-130m fabric run, "
+        f"{zoo_launches['ssd_chunked']} in the zamba2-7b runs")
     rows["uts_expand"]["launches"] = uts_launches
     log(f"[summary] uts_expand: {uts_launches} launches in the UTS run on "
         f"{UTS_P} places")

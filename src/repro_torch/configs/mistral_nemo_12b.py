@@ -1,0 +1,17 @@
+"""mistral-nemo-12b [dense] — 128k context.
+40L d_model=5120 32H (GQA kv=8) d_ff=14336 vocab=131072, head_dim=128
+[hf:mistralai/Mistral-Nemo-Base-2407; hf]."""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="mistral-nemo-12b",
+    family="dense",
+    n_layers=40,
+    d_model=5120,
+    n_heads=32,
+    n_kv_heads=8,
+    d_ff=14336,
+    vocab=131072,
+    head_dim=128,
+    rope_theta=1000000.0,
+)

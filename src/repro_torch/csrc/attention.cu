@@ -3,7 +3,7 @@
 // Four kernels share one block routine (`attend`) and one online-softmax
 // update (`softmax_update` / `merge_partials`); all are templated on the
 // element type (float or __nv_bfloat16; accumulation is always float) and
-// on the head dim D (16, 32, 64, 128).
+// on the head dim D (16, 32, 64, 112, 128).
 //
 //   flash_attention_kernel  replaces repro/kernels/flash_attention.py
 //                           flash_attention (prompt prefill, causal GQA)
@@ -188,7 +188,7 @@ __device__ void attend(const T* __restrict__ q, const T* __restrict__ k,
                        int split, int nsplit, float scale, Rows rows,
                        float* smem) {
   constexpr int VN = VecWidth<T>::n;
-  constexpr int TK = kTileElems / D;       // keys per tile
+  constexpr int TK = kTileElems / D;       // keys per tile (36 at D 112)
   constexpr int KS = D + 4;                // padded row: spreads banks
   float* ks = smem;
   float* vs = smem + TK * KS;
@@ -454,6 +454,7 @@ cudaError_t dispatch(int dtype, int D, const F& f) {
     case 16: f.template run<T, 16>(); break;      \
     case 32: f.template run<T, 32>(); break;      \
     case 64: f.template run<T, 64>(); break;      \
+    case 112: f.template run<T, 112>(); break;    \
     case 128: f.template run<T, 128>(); break;    \
     default: return cudaErrorInvalidValue;        \
   }

@@ -48,7 +48,9 @@
 //     offset is computed once, a tile ahead, one thread a key (the entry
 //     read and clamped once), not once per 16-byte copy; a contiguous
 //     cache's rows are addressed in place. Rows are padded by 16 bytes, so the
-//     ldmatrix reads of 8 rows hit 8 different bank groups. Tiles past the
+//     ldmatrix reads of 8 rows hit 8 different bank groups (a row is 2D + 16
+//     bytes, an odd number of 16-byte groups at every D taken: 9 at D 64,
+//     15 at D 112, 17 at D 128). Tiles past the
 //     block's last visible key are never loaded; only tiles that cross the
 //     diagonal of the block's first row (or the end of its keys) are
 //     masked.
@@ -587,6 +589,7 @@ cudaError_t dispatch(int D, const F& f) {
     case 16: return f.template run<16>();
     case 32: return f.template run<32>();
     case 64: return f.template run<64>();
+    case 112: return f.template run<112>();
     case 128: return f.template run<128>();
     default: return cudaErrorInvalidValue;
   }
@@ -604,7 +607,8 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 extern "C" {
 
-// bf16 q, k, v, out, contiguous, 16-byte aligned; D in {16, 32, 64, 128};
+// bf16 q, k, v, out, contiguous, 16-byte aligned; D in {16, 32, 64, 112,
+// 128};
 // B, Sq, Hkv >= 1, Skv >= 0. Anything else returns cudaErrorInvalidValue
 // unlaunched.
 int repro_flash_attention_tc(const void* q, const void* k, const void* v,

@@ -56,9 +56,11 @@
 //     of the 16-row A tile (8 of 16 used for tinyllama, 6 for qwen2; the
 //     unused rows cost registers only, decode being bound by bytes). A
 //     group above 16 heads takes more 16-row slices along the grid's y.
-//     A group of one (moonshot) is scored on the CUDA cores instead, two
-//     lanes a key and D / 32 output columns a lane, which measured faster
-//     than a 1-of-16-row tile (kCoreScoringG1).
+//     A group of one (moonshot) is scored on the CUDA cores instead at D
+//     64 and 128, two lanes a key and D / 32 output columns a lane, which
+//     measured faster than a 1-of-16-row tile (kCoreScoringG1). D 112
+//     (zamba2, also a group of one) does not split into 32 lanes of bf16
+//     pairs and is scored on the tensor cores at every group.
 //   * Online softmax in registers as in attention_tc.cu: scores
 //     pre-scaled by scale * log2(e); on the tensor cores P is rounded to
 //     bf16 once and repacked from the S accumulators into A fragments
@@ -561,9 +563,11 @@ bool bad_shape(int B, int Hq, int Hkv, int c) {
 }
 
 // A group of one query head (moonshot's) is scored on the CUDA cores
-// (score_g1_core) at D >= 64: on the card that beat a 1-of-16-row
+// (score_g1_core) at D 64 and 128: on the card that beat a 1-of-16-row
 // tensor-core tile by 0.6-0.8 us a call (tools/decode_ab.py builds the
-// source with this false to compare).
+// source with this false to compare). D 112 takes the tile at every
+// group: a CUDA-core layout of 4 columns a lane on 28 lanes measured
+// slower there (15.8 against 12.9 us a call at zamba2-7b's decode shape).
 constexpr bool kCoreScoringG1 = true;
 
 // Runs f.run<D, core>() for the runtime head dim and scoring route.
@@ -575,6 +579,7 @@ cudaError_t dispatch(int D, bool g1, const F& f) {
     case 32: return f.template run<32, false>();
     case 64:
       return core ? f.template run<64, true>() : f.template run<64, false>();
+    case 112: return f.template run<112, false>();
     case 128:
       return core ? f.template run<128, true>()
                   : f.template run<128, false>();
@@ -610,7 +615,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 extern "C" {
 
 // bf16 q, k, v, out, contiguous, 16-byte aligned; int32 lengths (B,);
-// D in {16, 32, 64, 128}; c in [1, 8]. Anything else returns
+// D in {16, 32, 64, 112, 128}; c in [1, 8]. Anything else returns
 // cudaErrorInvalidValue unlaunched.
 int repro_flash_decode_tc(const void* q, const void* k, const void* v,
                           void* out, const void* lengths, int B, int S,

@@ -299,7 +299,7 @@ def ssd_plan(batch: int, T: int, heads: int, P: int, N: int, L: int,
 
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # the C side's dtype codes
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128)
 
 
 def check_tensors(name: str, q, *tensors) -> int:

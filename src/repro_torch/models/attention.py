@@ -1,4 +1,5 @@
-"""GQA attention with RoPE, optional QKV bias, and prefill/decode caches.
+"""GQA attention with RoPE or M-RoPE, optional QKV bias, and prefill/decode
+caches.
 
 The four branches of ``repro.models.attention.attn_fwd``: train / prompt
 prefill (the flash_attention kernel), contiguous decode (flash_decode),
@@ -30,7 +31,7 @@ import torch
 from repro_torch.kernels import ops
 
 from .config import ModelConfig
-from .layers import apply_rope, dense_init
+from .layers import apply_mrope, apply_rope, dense_init
 
 
 def attn_init(cfg: ModelConfig, generator, device, dtype):
@@ -45,6 +46,12 @@ def attn_init(cfg: ModelConfig, generator, device, dtype):
         for name, n in (("bq", Hq), ("bk", Hkv), ("bv", Hkv)):
             p[name] = torch.zeros(n * hd, dtype=dtype, device=device)
     return p
+
+
+def _rope(cfg: ModelConfig, x, positions):
+    if cfg.mrope:
+        return apply_mrope(x, positions, cfg.rope_theta, cfg.mrope_sections)
+    return apply_rope(x, positions, cfg.rope_theta)
 
 
 def _as_lens(cache_len, B, device):
@@ -65,7 +72,7 @@ def _paged_write(pool, phys, off, new):
 def attn_fwd(
     p,
     x,                        # (B, S, D)
-    positions,                # (B, S)
+    positions,                # (B, S), or (B, S, 3) for M-RoPE
     cfg: ModelConfig,
     cache: Optional[dict] = None,   # {"k","v"}: (B, S_max, Hkv, hd), or
                                     # paged pools (NB + 1, Bs, Hkv, hd)
@@ -73,8 +80,6 @@ def attn_fwd(
     mode: str = "train",      # train | prefill | decode
     block_tables=None,        # (B, max_blocks) i32 for paged pools
 ) -> Tuple[torch.Tensor, Optional[dict]]:
-    if cfg.mrope:
-        raise NotImplementedError("M-RoPE (vlm family) is not ported yet")
     B, S, _ = x.shape
     Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
 
@@ -85,8 +90,8 @@ def attn_fwd(
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
-    q = apply_rope(q.view(B, S, Hq, hd), positions, cfg.rope_theta)
-    k = apply_rope(k.view(B, S, Hkv, hd), positions, cfg.rope_theta)
+    q = _rope(cfg, q.view(B, S, Hq, hd), positions)
+    k = _rope(cfg, k.view(B, S, Hkv, hd), positions)
     v = v.view(B, S, Hkv, hd)
 
     if mode == "decode":

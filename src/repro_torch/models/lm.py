@@ -10,11 +10,15 @@ from .transformer import forward, make_cache
 
 
 def prefill(params, cfg: ModelConfig, batch: Dict[str, Any], max_seq: int):
-    """Fill a fresh cache of size max_seq from ``batch["tokens"]`` (B, S).
+    """Fill a fresh cache of size max_seq from ``batch["tokens"]`` (B, S)
+    (or (B, S, K) for audio) or, for vlm, ``batch["embeds"]`` (B, S, D),
+    with ``batch["positions"]`` when given ((B, S, 3) under M-RoPE).
     Returns (logits, cache)."""
-    tokens = batch["tokens"]
-    cache = make_cache(cfg, tokens.shape[0], max_seq, device=tokens.device)
-    logits, cache, _ = forward(params, cfg, tokens,
+    tokens = batch.get("tokens")
+    embeds = batch.get("embeds")
+    src = tokens if tokens is not None else embeds
+    cache = make_cache(cfg, src.shape[0], max_seq, device=src.device)
+    logits, cache, _ = forward(params, cfg, tokens, embeds=embeds,
                                positions=batch.get("positions"),
                                cache=cache, cache_len=0, mode="prefill")
     return logits, cache
@@ -22,9 +26,9 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, Any], max_seq: int):
 
 def decode_step(params, cfg: ModelConfig, tokens, cache, cache_len,
                 block_tables=None):
-    """One token per sequence: tokens (B, 1). Returns (logits, cache);
-    with ``block_tables`` the cache is the paged pool (make_paged_cache).
-    The cache is updated in place."""
+    """One token per sequence: tokens (B, 1), or (B, 1, K) for audio.
+    Returns (logits, cache); with ``block_tables`` the cache is the paged
+    pool (make_paged_cache). The cache is updated in place."""
     logits, cache, _ = forward(params, cfg, tokens, cache=cache,
                                cache_len=cache_len, mode="decode",
                                block_tables=block_tables)

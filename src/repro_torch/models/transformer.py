@@ -1,15 +1,24 @@
-"""Decoder-only LM assembly for the ported families:
-  dense : [rmsnorm -> GQA attn -> rmsnorm -> SwiGLU] x L
-  moe   : [rmsnorm -> GQA attn -> rmsnorm -> MoE] x L
-  ssm   : [rmsnorm -> Mamba2] x L
+"""Decoder-only LM assembly for every family of the JAX package:
+  dense/vlm/audio : [rmsnorm -> GQA attn -> rmsnorm -> SwiGLU] x L
+  moe             : [rmsnorm -> GQA attn -> rmsnorm -> MoE] x L
+  ssm             : [rmsnorm -> Mamba2] x L
+  hybrid (zamba2) : [rmsnorm -> Mamba2] x L, plus ONE weight-shared
+                    (attn + MLP) block applied after every ``attn_every``-th
+                    layer (Zamba2's shared-block weight tying)
 
 Parameters are a dict: ``embed`` (Vp, D), ``head`` (D, Vp) unless tied,
 ``final_ln`` (D,), and ``blocks``, a list with one dict per layer (the JAX
 version stacks them on a leading L axis for ``lax.scan``; here a Python
-loop walks the list). Matrices are stored in the compute dtype
-``cfg.dtype``, norm scales (and Mamba2's ``A_log``, ``D``, ``dt_bias``)
-in float32 (the JAX version stores float32 masters and casts to the
-compute dtype on every use, which rounds to the same values).
+loop walks the list). The hybrid family adds ``shared`` ({ln1, attn, ln2,
+mlp}), one set of tensors that every application reads. The audio family
+(musicgen) has K codebooks: ``embed`` (K, Vp, D), summed over the K token
+streams, and ``head`` (K, D, Vp), logits (B, S, K, Vp). The vlm family
+(qwen2-vl) takes precomputed merged embeddings (B, S, D) and M-RoPE
+positions (B, S, 3) instead of tokens (the vision tower is a stub, as in
+the JAX package). Matrices are stored in the compute dtype ``cfg.dtype``,
+norm scales (and Mamba2's ``A_log``, ``D``, ``dt_bias``) in float32 (the
+JAX version stores float32 masters and casts to the compute dtype on every
+use, which rounds to the same values).
 """
 from __future__ import annotations
 
@@ -28,16 +37,23 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-FAMILIES = ("dense", "moe", "ssm")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in FAMILIES or cfg.n_codebooks or cfg.mrope:
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (have {FAMILIES})")
+            f"unknown family {cfg.family!r} (have {FAMILIES})")
 
 
 # ------------------------------------------------------------------ init
+def _attn_mlp_init(cfg: ModelConfig, generator, device, dt):
+    zeros = lambda: torch.zeros(cfg.d_model, dtype=torch.float32,
+                                device=device)
+    return {"ln1": zeros(), "attn": attn_init(cfg, generator, device, dt),
+            "ln2": zeros()}
+
+
 def init_lm(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
             device=None) -> Dict[str, Any]:
     """Random weights with the distributions of ``repro.models.init_lm``
@@ -46,41 +62,48 @@ def init_lm(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     device = resolve_device(device)
     dt = compute_dtype(cfg)
     Vp, D = cfg.padded_vocab, cfg.d_model
+    K = (cfg.n_codebooks,) if cfg.n_codebooks else ()
     params: Dict[str, Any] = {
-        "embed": embed_init((Vp, D), generator, device).to(dt)}
+        "embed": embed_init(K + (Vp, D), generator, device).to(dt)}
     if not cfg.tie_embeddings:
-        params["head"] = embed_init((D, Vp), generator, device).to(dt)
+        params["head"] = embed_init(K + (D, Vp), generator, device).to(dt)
     zeros = lambda: torch.zeros(D, dtype=torch.float32, device=device)
-    if cfg.family == "ssm":
-        params["blocks"] = [
-            {"ln": zeros(), "mamba": mamba_init(cfg, generator, device, dt)}
-            for _ in range(cfg.n_layers)
-        ]
-    else:
-        params["blocks"] = []
-        for _ in range(cfg.n_layers):
-            blk = {"ln1": zeros(),
-                   "attn": attn_init(cfg, generator, device, dt),
-                   "ln2": zeros()}
+    params["blocks"] = []
+    for _ in range(cfg.n_layers):
+        if cfg.family in ("ssm", "hybrid"):
+            blk = {"ln": zeros(),
+                   "mamba": mamba_init(cfg, generator, device, dt)}
+        else:
+            blk = _attn_mlp_init(cfg, generator, device, dt)
             if cfg.family == "moe":
                 blk["moe"] = moe_init(cfg, generator, device, dt)
             else:
                 blk["mlp"] = mlp_init(D, cfg.d_ff, generator, device, dt)
-            params["blocks"].append(blk)
+        params["blocks"].append(blk)
+    if cfg.family == "hybrid":
+        params["shared"] = dict(_attn_mlp_init(cfg, generator, device, dt),
+                                mlp=mlp_init(D, cfg.d_ff, generator, device,
+                                             dt))
     params["final_ln"] = zeros()
     return params
 
 
 # ----------------------------------------------------------------- cache
 def n_attn_caches(cfg: ModelConfig) -> int:
-    return 0 if cfg.family == "ssm" else cfg.n_layers
+    """k/v cache layers: one per layer, none for ssm, and one per
+    application of the shared block for hybrid."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_every
+    return cfg.n_layers
 
 
 def _recurrent_leaves(cfg: ModelConfig, slots: int, dtype, device):
-    """Per-slot Mamba2 state (L, slots, ...): conv states in ``dtype``
-    (they hold compute-dtype values, so this is lossless), ssm in float32
-    as JAX hard-codes."""
-    if cfg.family != "ssm":
+    """Per-slot Mamba2 state (L, slots, ...) of the ssm and hybrid
+    families: conv states in ``dtype`` (they hold compute-dtype values, so
+    this is lossless), ssm in float32 as JAX hard-codes."""
+    if cfg.family not in ("ssm", "hybrid"):
         return {}
     L, k1 = cfg.n_layers, cfg.ssm_conv - 1
     z = lambda *s, dt=dtype: torch.zeros((L, slots) + s, dtype=dt,
@@ -94,8 +117,9 @@ def _recurrent_leaves(cfg: ModelConfig, slots: int, dtype, device):
 
 def make_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
                device=None) -> Dict[str, torch.Tensor]:
-    """Contiguous per-slot caches: attention k/v (L, batch, max_seq, Hkv,
-    hd) and, for the ssm family, the recurrent leaves per slot."""
+    """Contiguous per-slot caches: attention k/v (n_attn_caches, batch,
+    max_seq, Hkv, hd) and, for the ssm and hybrid families, the recurrent
+    leaves per slot."""
     _check_family(cfg)
     device = resolve_device(device)
     dtype = dtype or compute_dtype(cfg)
@@ -140,6 +164,52 @@ def _zero_aux(cfg: ModelConfig, device):
     return aux
 
 
+def _attention(cfg, bp, x, positions, cache, ci, cache_len, mode,
+               block_tables):
+    """x + attention of ``bp`` (a block or the shared block) on k/v cache
+    layer ``ci`` (a view, updated in place)."""
+    acache = ({"k": cache["k"][ci], "v": cache["v"][ci]}
+              if cache else None)
+    h, _ = attn_fwd(bp["attn"], rmsnorm(x, bp["ln1"], cfg.norm_eps),
+                    positions, cfg, cache=acache, cache_len=cache_len,
+                    mode=mode, block_tables=block_tables)
+    return x + h
+
+
+def apply_layer(params, cfg: ModelConfig, li: int, x, positions,
+                cache=None, cache_len=None, mode: str = "train",
+                block_tables=None):
+    """Layer ``li`` on x (B, S, D) and, for the hybrid family, the shared
+    block where it follows that layer. Returns (x, aux): aux is the
+    layer's MoE routing statistics (None for the other families)."""
+    if cfg.family in ("ssm", "hybrid"):
+        bp = params["blocks"][li]
+        # Per-slot lengths in decode: -1 marks a slot whose state stays.
+        active = (cache_len >= 0 if mode == "decode"
+                  and torch.is_tensor(cache_len) and cache_len.dim() == 1
+                  else None)
+        mcache = {k: cache[k][li] for k in STATE_KEYS} if cache else None
+        h, _ = mamba_fwd(bp["mamba"], rmsnorm(x, bp["ln"], cfg.norm_eps),
+                         cfg, cache=mcache, mode=mode, active=active)
+        x = x + h
+        if cfg.family == "hybrid" and (li + 1) % cfg.attn_every == 0:
+            # The shared block, on its application's own k/v layer.
+            sp = params["shared"]
+            x = _attention(cfg, sp, x, positions, cache,
+                           (li + 1) // cfg.attn_every - 1, cache_len, mode,
+                           block_tables)
+            x = x + mlp_fwd(sp["mlp"], rmsnorm(x, sp["ln2"], cfg.norm_eps))
+        return x, None
+    bp = params["blocks"][li]
+    x = _attention(cfg, bp, x, positions, cache, li, cache_len, mode,
+                   block_tables)
+    hin = rmsnorm(x, bp["ln2"], cfg.norm_eps)
+    if cfg.family == "moe":
+        h, aux = moe_fwd(bp["moe"], hin, cfg)
+        return x + h, aux
+    return x + mlp_fwd(bp["mlp"], hin), None
+
+
 def run_layers(params, cfg: ModelConfig, x, positions, cache, cache_len,
                mode, block_tables=None):
     """Apply every block; caches are per-layer views updated in place.
@@ -147,54 +217,46 @@ def run_layers(params, cfg: ModelConfig, x, positions, cache, cache_len,
     the moe family, ``expert_counts`` and ``dropped``) as JAX's scan
     does."""
     aux = _zero_aux(cfg, x.device)
-    if cfg.family == "ssm":
-        # Per-slot lengths in decode: -1 marks a slot whose state stays.
-        active = (cache_len >= 0 if mode == "decode"
-                  and torch.is_tensor(cache_len) and cache_len.dim() == 1
-                  else None)
-        for li, bp in enumerate(params["blocks"]):
-            mcache = ({k: cache[k][li] for k in STATE_KEYS}
-                      if cache else None)
-            h, _ = mamba_fwd(bp["mamba"],
-                             rmsnorm(x, bp["ln"], cfg.norm_eps), cfg,
-                             cache=mcache, mode=mode, active=active)
-            x = x + h
-        return x, cache, aux
-    for li, bp in enumerate(params["blocks"]):
-        acache = ({"k": cache["k"][li], "v": cache["v"][li]}
-                  if cache else None)
-        h, _ = attn_fwd(bp["attn"], rmsnorm(x, bp["ln1"], cfg.norm_eps),
-                        positions, cfg, cache=acache, cache_len=cache_len,
-                        mode=mode, block_tables=block_tables)
-        x = x + h
-        hin = rmsnorm(x, bp["ln2"], cfg.norm_eps)
-        if cfg.family == "moe":
-            h, moe_aux = moe_fwd(bp["moe"], hin, cfg)
+    for li in range(cfg.n_layers):
+        x, layer_aux = apply_layer(params, cfg, li, x, positions, cache,
+                                   cache_len, mode, block_tables)
+        if layer_aux is not None:
             for k in aux:
-                aux[k] = aux[k] + moe_aux[k]
-        else:
-            h = mlp_fwd(bp["mlp"], hin)
-        x = x + h
+                aux[k] = aux[k] + layer_aux[k]
     return x, cache, aux
 
 
 def embed_tokens(params, cfg: ModelConfig, tokens):
+    if cfg.n_codebooks:
+        # audio: sum the K codebook embeddings of (B, S, K) tokens
+        emb = params["embed"]                           # (K, Vp, D)
+        return sum(emb[k][tokens[..., k]] for k in range(cfg.n_codebooks))
     return params["embed"][tokens]
 
 
 def lm_logits(params, cfg: ModelConfig, x):
+    if cfg.n_codebooks:
+        head = (params["embed"].transpose(1, 2) if cfg.tie_embeddings
+                else params["head"])                    # (K, D, Vp)
+        return torch.einsum("bsd,kdv->bskv", x, head)
     head = params["embed"].T if cfg.tie_embeddings else params["head"]
     return x @ head
 
 
-def forward(params, cfg: ModelConfig, tokens, positions=None,
+def forward(params, cfg: ModelConfig, tokens=None, positions=None,
             cache: Optional[dict] = None, cache_len=None,
-            mode: str = "train", block_tables=None):
-    """tokens (B, S) -> (logits (B, S, Vp), cache, aux). The cache, when
-    given, is updated in place and returned."""
+            mode: str = "train", block_tables=None, embeds=None):
+    """tokens (B, S), or (B, S, K) for audio; or, for vlm, ``embeds`` (B,
+    S, D) merged embeddings. positions (B, S), or (B, S, 3) under M-RoPE;
+    by default arange from the cache length (broadcast to the three
+    streams under M-RoPE). Returns (logits (B, S, Vp) or (B, S, K, Vp),
+    cache, aux); the cache, when given, is updated in place."""
     _check_family(cfg)
-    x = embed_tokens(params, cfg, tokens)
-    B, S = tokens.shape[:2]
+    if embeds is not None:
+        x = embeds.to(compute_dtype(cfg))
+    else:
+        x = embed_tokens(params, cfg, tokens)
+    B, S = x.shape[:2]
     if positions is None:
         ar = torch.arange(S, dtype=torch.int32, device=x.device)[None]
         if cache_len is None:
@@ -207,6 +269,8 @@ def forward(params, cfg: ModelConfig, tokens, positions=None,
             off = (cl.clamp(min=0)[:, None] if cl.dim() == 1
                    else cl.expand(B, 1))
             positions = ar + off
+        if cfg.mrope:
+            positions = positions[..., None].expand(B, S, 3)
     x, cache, aux = run_layers(params, cfg, x, positions, cache, cache_len,
                                mode, block_tables)
     x = rmsnorm(x, params["final_ln"], cfg.norm_eps)

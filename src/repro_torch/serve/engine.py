@@ -20,11 +20,13 @@ flat block pools (``models.make_paged_cache``) mapped per sequence by
 token budget, FIFO admission), decode through the paged kernel.
 ``prefix_cache=True`` adds the radix prefix cache and ``prefill_chunk=N``
 chunked prefill (the paged_prefill kernel attends chunk [s, e) to the pool
-window [0, e)). Both are attention-family features: the ssm family's
-recurrent state cannot be forked or resumed mid-prompt, so they raise.
+window [0, e)). Both are attention-family features: the recurrent state
+of the ssm and hybrid families cannot be forked or resumed mid-prompt, so
+they raise.
 
-The ssm family (mamba2) keeps its conv/ssm state per decode slot in both
-cache layouts. Every admission zeroes the slot's recurrent rows before
+The ssm (mamba2) and hybrid (zamba2) families keep their conv/ssm state
+per decode slot in both cache layouts; the hybrid family's k/v caches
+hold one layer per application of its shared attention block. Every admission zeroes the slot's recurrent rows before
 its prefill (prefill reads the conv state), and, as in the JAX engine,
 the prompt's padding to the ``pad_len`` bucket runs through the
 recurrence.
@@ -165,8 +167,8 @@ class Engine:
                  replica_id: int = 0, device=None):
         if slo_admission and not paged:
             raise ValueError("slo_admission needs the paged scheduler")
-        if cfg.family == "ssm" and (prefix_cache
-                                    or prefill_chunk is not None):
+        if cfg.family in ("ssm", "hybrid") and (
+                prefix_cache or prefill_chunk is not None):
             # Recurrent conv/ssm state is not block-addressable: a cached
             # prefix (or an earlier chunk) carries hidden state the pool
             # cannot fork.

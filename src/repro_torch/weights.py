@@ -4,7 +4,10 @@
 converted to numpy arrays (``jax.tree.map(np.asarray, params)``), and
 returns the port's parameters, so the two packages compute the same
 function. The JAX tree stacks every layer parameter on a leading L axis
-(for ``lax.scan``); the port unstacks it into one dict per layer.
+(for ``lax.scan``); the port unstacks it into one dict per layer. The
+hybrid family's ``shared`` block is one set of tensors in both (not
+stacked), and the audio family's (K, ...) codebook ``embed`` and ``head``
+carry over whole.
 """
 from __future__ import annotations
 
@@ -43,4 +46,8 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device=None,
     out = {name: conv(name, tree[name])
            for name in ("embed", "head", "final_ln") if name in tree}
     out["blocks"] = [layer(tree["blocks"], i) for i in range(cfg.n_layers)]
+    if "shared" in tree:
+        whole = lambda sub: {k: (whole(v) if isinstance(v, dict)
+                                 else conv(k, v)) for k, v in sub.items()}
+        out["shared"] = whole(tree["shared"])
     return out

@@ -71,6 +71,16 @@ the bf16 kernel takes, replay from a CUDA graph with new offsets and
 lengths, the route each dtype takes, one launch per call, and a build
 failure that raises.
 
+Head dim 112 (zamba2-7b's 3584 / 32): the four attention kernels in both
+dtypes at groups 1 and 4 (in bf16 both through the tensor-core decode
+scoring, which beat the CUDA cores' layout for a group of one at D 112),
+the engines' shapes (a 256-token prompt, 8 decode slots
+of 100-384 keys, a 64-row chunk at offset 128, 32/32 heads), and head
+dims outside {16, 32, 64, 112, 128} refused with ValueError before any
+launch; ``ssd_chunked`` at zamba2's 112 heads of P 64, N 64; and the
+zamba2 smoke config served on the card, contiguous and paged, with the
+tokens of its plain path.
+
 Live migration: KV blocks gathered on the card, copied to host memory and
 back and scattered into another pool arrive bit for bit in bf16 and f32,
 with every other block (the sink included) untouched; and a 2-replica
@@ -161,6 +171,18 @@ def test_ssd_kernel_matches_plain_version(card, Bt, T, H, P, N, chunk,
     ops.reset_launches()
     _check_ssd((x.to(dtype), dt, A, B, C), chunk, rel)
     assert ops.kernel_launches()["ssd_chunked"] == 1   # one launch a call
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", SSD_RELS)
+@pytest.mark.parametrize("T", [256, 1024])
+def test_ssd_kernel_at_zamba2_shape(card, T, dtype, rel):
+    """zamba2-7b's Mamba2 layer: 112 heads of P 64, state 64, at the
+    256- and 1024-token buckets; one launch a call."""
+    x, dt, A, B, C = _inputs(T + 112, 1, T, 112, 64, 64)
+    ops.reset_launches()
+    _check_ssd((x.to(dtype), dt, A, B, C), 64, rel)
+    assert ops.kernel_launches()["ssd_chunked"] == 1
 
 
 @pytest.mark.cuda
@@ -510,6 +532,51 @@ def test_flash_attention_routes_by_dtype(card, monkeypatch, dtype, library):
     assert ops.kernel_launches()["flash_attention"] == 1
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Skv", [(2, 77, 77), (1, 40, 96),
+                                      (1, 70, 50)])
+@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_kernel_at_head_dim_112(card, dtype, causal, group,
+                                                B, Sq, Skv):
+    """D 112: a row is 14 16-byte chunks, Q K^T 7 k-steps, O 14 n8
+    tiles on the tensor cores; 28 float4 columns on the CUDA cores."""
+    q, k, v = _attn_inputs(Sq + group, B, Sq, Skv, group * 2, 2, 112, dtype)
+    got = _check_attention(q, k, v, causal)
+    if causal and Sq > Skv:
+        assert (got[:, :Sq - Skv] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_kernel_at_zamba2_prompt(card, dtype):
+    """zamba2-7b's shared attention block on a 256-token bucket."""
+    _check_attention(*_attn_inputs(112, 1, 256, 256, 32, 32, 112, dtype),
+                     True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [8, 48, 96, 120, 256])
+def test_attention_kernels_refuse_other_head_dims(card, D):
+    """A head dim outside {16, 32, 64, 112, 128} raises ValueError in
+    every wrapper before any launch."""
+    f = lambda *s: torch.zeros(s, device="cuda", dtype=torch.bfloat16)
+    i32 = lambda *s: torch.zeros(s, device="cuda", dtype=torch.int32)
+    q1, kv = f(2, 1, 4, D), f(2, 16, 2, D)
+    pool, bt, ln = f(4, 8, 2, D), i32(2, 2), i32(2)
+    ops.reset_launches()
+    for call in (lambda: flash_attention(f(1, 8, 4, D), f(1, 8, 2, D),
+                                         f(1, 8, 2, D)),
+                 lambda: flash_decode(q1, kv, kv, ln),
+                 lambda: paged_decode(q1, pool, pool, bt, ln),
+                 lambda: paged_prefill(f(2, 3, 4, D), pool, pool, bt, ln,
+                                       i32(2))):
+        with pytest.raises(ValueError, match="head dim"):
+            call()
+    assert sum(ops.kernel_launches().values()) == 0
+
+
 # ------------------------------------------------------------ decode
 # KV heads of the served decode shapes, by GQA group: moonshot-v1-16b-a3b
 # (1), phi3.5-moe (4), qwen2-1.5b (6), tinyllama-1.1b (8); each at head
@@ -590,6 +657,46 @@ def test_decode_kernels_at_other_groups_and_head_dims(card, group, D,
     head."""
     _check_decode(_decode_case(group + D, group, D, torch.bfloat16, paged),
                   paged)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_kernels_at_head_dim_112(card, dtype, group, paged):
+    """D 112 at the split's edges, groups 1 (zamba2's) and 4: in bf16
+    both on the tensor cores (7 k-steps, 14 n8 output tiles)."""
+    _check_decode(_decode_case(group + 112 + paged, group, 112, dtype,
+                               paged), paged)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True])
+def test_decode_kernels_at_zamba2_shape(card, paged):
+    """8 slots of 100-384 keys, 32/32 heads of 112, bf16."""
+    rng = np.random.default_rng(112)
+    f = lambda *s: torch.from_numpy(
+        rng.standard_normal(s).astype(np.float32)).to("cuda", torch.bfloat16)
+    lens = [int(x) for x in rng.integers(100, 385, 8)]
+    i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32), device="cuda")
+    q = f(8, 1, 32, 112)
+    if paged:
+        MB = DECODE_S // DECODE_BS
+        bt = np.arange(8 * MB, dtype=np.int32).reshape(8, MB)[:, ::-1]
+        args = (q, f(8 * MB, DECODE_BS, 32, 112), f(8 * MB, DECODE_BS, 32,
+                                                     112),
+                i32(bt.copy()), i32(lens))
+        fn, ref_fn = paged_decode, paged_decode_ref
+    else:
+        args = (q, f(8, DECODE_S, 32, 112), f(8, DECODE_S, 32, 112),
+                i32(lens))
+        fn, ref_fn = flash_decode, decode_ref
+    ops.reset_launches()
+    got, want = fn(*args), ref_fn(*args)
+    torch.cuda.synchronize()
+    assert ops.kernel_launches()[fn.__name__] == 1
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= ATTN_TOL[torch.bfloat16], err
 
 
 @pytest.mark.cuda
@@ -720,9 +827,21 @@ def test_paged_prefill_kernels_match_plain_version(card, dtype, group, D,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("Sq", [1, 24, 64, 200])
+@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_prefill_kernels_at_head_dim_112(card, dtype, group, Sq):
+    """D 112 (no served arch reaches chunked prefill there, the hybrid
+    family refusing it, but the dispatch is shared): every sequence
+    shape of ``_prefill_case``."""
+    _check_prefill(_prefill_case(group * 112 + Sq, group, 112, dtype, Sq))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("cluster", [1, 2, 4, 8])
 @pytest.mark.parametrize("group,D,Sq", [(8, 64, 64), (1, 128, 64),
-                                        (4, 16, 50), (2, 32, 200)])
+                                        (1, 112, 64), (4, 16, 50),
+                                        (2, 32, 200)])
 def test_paged_prefill_at_every_cluster_size(card, monkeypatch, cluster,
                                              group, D, Sq):
     """The bf16 kernel's key split over clusters of 1 to 8 blocks (shares
@@ -869,3 +988,46 @@ def test_migrating_fabric_on_the_card(card):
     while alone.load:
         alone.step()
     assert [r.out for r in reqs] == [r.out for r in ref]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True])
+def test_hybrid_engine_on_the_card(card, paged):
+    """zamba2-7b.smoke() at 4 layers (two applications of the shared
+    block) served on the card: ssd_chunked, flash_attention and the
+    mode's decode kernel launch, every request finishes, and the tokens
+    equal those of the plain path (the plain versions on the card)."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import init_lm
+    from repro_torch.serve import Engine, Request
+
+    base = dataclasses.replace(ARCHS["zamba2-7b"].smoke(), n_layers=4)
+    params = init_lm(base, torch.Generator(device="cuda").manual_seed(0),
+                     device="cuda")
+    kw = dict(max_slots=2, max_seq=64, pad_len=16, steps_per_sync=4)
+    if paged:
+        kw.update(paged=True, block_size=8)
+    outs = []
+    for impl in ("auto", "ref"):
+        cfg = dataclasses.replace(base, attn_impl=impl, decode_impl=impl)
+        reqs = [Request(rid=i, prompt=[3, i + 1, 4, 7, 2, 9][: 3 + i],
+                        max_new=10 + 3 * i) for i in range(3)]
+        eng = Engine(cfg, params, device="cuda", **kw)
+        ops.reset_launches()
+        for r in reqs:
+            eng.submit(r)
+        while eng.load:
+            eng.step()
+        torch.cuda.synchronize()
+        counts = ops.kernel_launches()
+        assert all(r.done for r in reqs)
+        if impl == "auto":
+            decode = "paged_decode" if paged else "flash_decode"
+            for name in ("ssd_chunked", "flash_attention", decode):
+                assert counts[name] > 0, (name, counts)
+        else:
+            assert sum(counts.values()) == 0
+        outs.append([r.out for r in reqs])
+    assert outs[0] == outs[1]

@@ -61,7 +61,13 @@ def test_importing_every_module_loads_no_jax():
               "repro_torch.kernels.moe_gmm",
               "repro_torch.configs.moonshot_v1_16b_a3b",
               "repro_torch.serve.cost", "repro_torch.obs.slo",
-              "repro_torch.obs.flight", "repro_torch.obs.analyze"):
+              "repro_torch.obs.flight", "repro_torch.obs.analyze",
+              "repro_torch.configs.registry",
+              "repro_torch.configs.zamba2_7b",
+              "repro_torch.configs.qwen2_vl_2b",
+              "repro_torch.configs.musicgen_medium",
+              "repro_torch.configs.mistral_nemo_12b",
+              "repro_torch.configs.qwen1_5_110b"):
         assert m in mods, m
     assert len(mods) > 20
     code = (
@@ -115,6 +121,8 @@ def test_cuda_requested_without_cuda_raises(monkeypatch):
     sparams = init_lm(scfg, device="cpu")
     mcfg = ARCHS["moonshot-v1-16b-a3b"].smoke()
     mparams = init_lm(mcfg, device="cpu")
+    hcfg = ARCHS["zamba2-7b"].smoke()
+    hparams = init_lm(hcfg, device="cpu")
     for call in (lambda: Engine(cfg, params),              # default: cuda
                  lambda: Engine(cfg, params, device="cuda"),
                  lambda: init_lm(cfg, device="cuda"),
@@ -127,6 +135,11 @@ def test_cuda_requested_without_cuda_raises(monkeypatch):
                  lambda: make_cache(scfg, 1, 8),
                  lambda: Engine(mcfg, mparams),
                  lambda: init_lm(mcfg),
+                 lambda: Engine(hcfg, hparams),
+                 lambda: init_lm(hcfg),
+                 lambda: make_cache(hcfg, 1, 8),
+                 lambda: init_lm(ARCHS["qwen2-vl-2b"].smoke()),
+                 lambda: init_lm(ARCHS["musicgen-medium"].smoke()),
                  lambda: run_sim(fib_problem(8), 2),        # default: cuda
                  lambda: run_sim(fib_problem(8), 2, device="cuda"),
                  lambda: GLB(fib_problem(8), P=2).run()):

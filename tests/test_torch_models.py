@@ -33,7 +33,6 @@ from repro_torch.models import decode_step as t_decode_step
 from repro_torch.models import forward as t_forward
 from repro_torch.models import init_lm as t_init_lm
 from repro_torch.models import make_cache as t_make_cache
-from repro_torch.models import ModelConfig
 from repro_torch.models import make_paged_cache as t_make_paged_cache
 from repro_torch.weights import params_from_jax
 
@@ -363,7 +362,26 @@ def test_ssm_caches_and_init_shapes():
         assert tuple(pc[k].shape) == a.shape
         assert pc[k].dtype == (torch.float32 if k == "ssm"
                                else torch.bfloat16)
-    hybrid = ModelConfig(name="h", family="hybrid", n_layers=2,
-                         d_model=64, attn_every=2)
-    with pytest.raises(NotImplementedError):        # a later slice
-        t_make_cache(hybrid, 1, 8, device="cpu")
+    # The hybrid family: n_layers // attn_every k/v layers (one per
+    # application of the shared block) beside the recurrent leaves of
+    # every layer, in both cache layouts; the pools hold the sink block.
+    hybrid = dataclasses.replace(ARCHS["zamba2-7b"].smoke(), n_layers=5,
+                                 attn_every=2)
+    thybrid = dataclasses.replace(T_ARCHS["zamba2-7b"].smoke(), n_layers=5,
+                                  attn_every=2)
+    jcc = make_cache(hybrid, 3, 16, dtype=jnp.float32)
+    tcc = t_make_cache(thybrid, 3, 16, device="cpu")
+    jpc = make_paged_cache(hybrid, 6, 8, 3, dtype=jnp.float32)
+    tpc = t_make_paged_cache(thybrid, 6, 8, 3, device="cpu")
+    for got, want, sink in ((tcc, jcc, 0), (tpc, jpc, 1)):
+        assert set(got) == set(want) == {"k", "v", "conv_x", "conv_B",
+                                         "conv_C", "ssm"}
+        for k, a in want.items():
+            shape = list(a.shape)
+            if k in ("k", "v"):
+                assert shape[0] == 2            # 5 // 2 applications
+                shape[1] += sink
+            else:
+                assert shape[0] == 5
+            assert list(got[k].shape) == shape, k
+            assert got[k].dtype == torch.float32

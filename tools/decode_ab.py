@@ -4,10 +4,11 @@
     python3 tools/decode_ab.py
 
 Times ``flash_decode`` and ``paged_decode`` (bf16, CUDA-graph replay, the
-timer of ``chip_smoke.py``) at the two decode shapes the engines run, 8
+timer of ``chip_smoke.py``) at the three decode shapes the engines run, 8
 slots of lengths 100-384 against a 1024-row cache (tinyllama-1.1b: 32/4
-heads of 64; moonshot-v1-16b-a3b: 16/16 heads of 128), for every cluster
-size c in {1, 2, 4, 8} and four builds of the source:
+heads of 64; moonshot-v1-16b-a3b: 16/16 heads of 128; zamba2-7b: 32/32
+heads of 112), for every cluster size c in {1, 2, 4, 8} and four builds of
+the source:
 
   built       the source as committed;
   3-stage     a ring of three K/V tiles instead of two;
@@ -43,7 +44,8 @@ EDITS = {
               "constexpr bool kCoreScoringG1 = false;"),
 }
 CLUSTERS = (1, 2, 4, 8)
-SHAPES = {"tinyllama": (32, 4, 64), "moonshot": (16, 16, 128)}
+SHAPES = {"tinyllama": (32, 4, 64), "moonshot": (16, 16, 128),
+          "zamba2": (32, 32, 112)}
 
 
 def main() -> int:
