@@ -137,12 +137,36 @@ Phases, in order; any failure exits non-zero:
                and qwen2-vl and musicgen through lm.prefill and 16
                decode_steps), and close last-position prefill logits at
                full width (tinyllama and mamba2).
+  8. train  — training through the CLI's entry point,
+               ``repro_torch.launch.train.train``, on float32 master
+               weights with AdamW, the three kernels of the training path
+               (flash_attention, gmm, ssd_chunked) in the forward pass
+               through their autograd route (``kernels/autograd.py``: the
+               kernel forward, the plain version's backward). (a)
+               tinyllama-1.1b at full width, bf16 compute, remat "full",
+               8 x 512 tokens, 20 steps: the loss must fall by
+               TRAIN_MIN_DROP and flash_attention launch 2 x 22 times a
+               step; tokens/s, step ms p50, peak memory, and the step's
+               forward / backward / optimizer split (CUDA events, and
+               device busy under torch.profiler) with the device time of
+               each kernel's backward through its plain version, read
+               from its ``record_function`` range. (b)
+               moonshot-v1-16b-a3b at the 100m preset with
+               --rebalance-every 5: gmm launches 3 x 12 times a step and
+               the rebalancer's line is printed twice. (c) mamba2-130m at
+               full width: ssd_chunked launches 2 x 24 times a step. (d)
+               gradient parity on the smoke configs of the dense, moe, ssm
+               and hybrid families in float32 and bf16, kernel route
+               against plain route (see ``_grad_parity``). (e) the
+               --fail-at-step / --resume drill at the tiny preset against
+               an uninterrupted run: bit-exact.
 The last two lines of standard output are one JSON object with each
 kernel's numbers and the contract line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import subprocess
@@ -2757,6 +2781,464 @@ def _smoke_req(rng, i):
                    max_new=int(rng.integers(8, 40)))
 
 
+# ------------------------------------------------------------ phase 8
+TRAIN_KERNELS = ("flash_attention", "gmm", "ssd_chunked")
+# (a) tinyllama-1.1b at full width: bf16 compute on float32 masters,
+# remat "full" (its config's), 8 x 512 tokens a step.
+TRAIN_MAIN = ["--arch", "tinyllama-1.1b", "--preset", "full", "--steps",
+              "20", "--batch", "8", "--seq", "512", "--log-every", "1"]
+# The loss must fall at least this far over the 20 steps: half of what the
+# H100 runs measured (10.6022 -> 4.7015, 5.90, in each of three runs).
+TRAIN_MIN_DROP = 3.0
+TRAIN_MOE = ["--arch", MOE, "--preset", "100m", "--steps", "10", "--batch",
+             "8", "--seq", "128", "--rebalance-every", "5", "--log-every",
+             "5"]
+TRAIN_SSM = ["--arch", "mamba2-130m", "--preset", "full", "--steps", "10",
+             "--batch", "8", "--seq", "512", "--log-every", "5"]
+TRAIN_DRILL = ["--arch", "tinyllama-1.1b", "--preset", "tiny", "--steps",
+               "12", "--batch", "4", "--seq", "64", "--ckpt-every", "4",
+               "--log-every", "12"]
+# (d) gradient parity: smoke configs of these families; the kernel route
+# runs under a remat policy (the plain route under none), so checkpointed
+# layers that recompute the kernels are held too.
+GRAD_ARCHS = {"tinyllama-1.1b": ("dots", ("flash_attention",)),
+              MOE: ("full", ("flash_attention", "gmm")),
+              "mamba2-130m": ("full", ("ssd_chunked",)),
+              "zamba2-7b": ("dots", ("ssd_chunked", "flash_attention"))}
+
+
+def _train_run(tag, argv, smi):
+    """``launch.train.train(argv)`` on the card: per-step host ms (each
+    step ends in a synchronise), each step's kernel launches, the peak of
+    device memory over the run. Returns (params, opt, history, step ms,
+    per-step launch counts, peak bytes, printed lines)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train
+
+    ms, launches = [], []
+    last = [0.0, ops.kernel_launches()]
+
+    def on_step(step, metrics):
+        torch.cuda.synchronize()
+        now, counts = time.perf_counter(), ops.kernel_launches()
+        ms.append(1e3 * (now - last[0]))
+        launches.append({k: counts[k] - last[1][k] for k in counts})
+        last[0], last[1] = now, counts
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    out = io.StringIO()
+    last[0], last[1] = time.perf_counter(), ops.kernel_launches()
+    with contextlib.redirect_stdout(out):
+        params, opt, hist = train(argv + ["--device", DEVICE],
+                                  on_step=on_step)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        log(f"[train] {tag}: {line}")
+    if not all(math.isfinite(h["loss"]) for h in hist):
+        fail(f"train {tag}: a loss is not finite: {hist}")
+    return params, opt, hist, ms, launches, peak, lines
+
+
+def _per_step(tag, launches, name, want):
+    got = sorted({c[name] for c in launches})
+    if got != [want]:
+        fail(f"train {tag}: {name} launched {got} times a step, want "
+             f"{want}")
+
+
+BACKWARD_RANGE = "KernelFunction.backward["
+
+
+def _busy_ms(label, fn):
+    """One call of ``fn`` under torch.profiler: (device busy ms, the
+    kernel ms inside each ``KernelFunction.backward[...]`` range by the
+    plain version's name, fn's result). Busy sums the device records
+    (kernels and copies), leaving out the gaps where the device waits for
+    the host. A ``record_function`` range also appears on the device as
+    one span over its kernels, gaps included; the spans are not summed,
+    they select the kernels inside them."""
+    import bisect
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = [e for e in dev if e.name.startswith(BACKWARD_RANGE)]
+    kernels = sorted((e.time_range.start, e.time_range.end) for e in dev
+                     if not e.name.startswith(BACKWARD_RANGE))
+    busy = sum(b - a for a, b in kernels) / 1e3
+    if busy <= 0:
+        fail(f"train: torch.profiler recorded no device time ({label})")
+    starts = [a for a, _ in kernels]
+    ranges = {}
+    for sp in spans:
+        name = sp.name[len(BACKWARD_RANGE):-1]
+        lo = bisect.bisect_left(starts, sp.time_range.start)
+        hi = bisect.bisect_right(starts, sp.time_range.end)
+        inside = sum(b - a for a, b in kernels[lo:hi]
+                     if b <= sp.time_range.end)
+        ranges[name] = ranges.get(name, 0.0) + inside / 1e3
+    return busy, ranges, out
+
+
+def _step_split(cfg, params, opt, batch, iters=3):
+    """A training step's forward (``train_loss``), backward
+    (``torch.autograd.grad``) and optimizer (``adamw_update``): device ms
+    by CUDA events, the median of ``iters`` steps (the device's clock,
+    gaps where it waits for the host included); then device busy ms of
+    one more step under torch.profiler, and of its backward the device ms
+    of each kernel's backward through its plain version. Returns
+    (elapsed, busy, ranges): elapsed and busy [forward, backward,
+    optimizer] lists, ranges {plain version's name: ms}."""
+    import torch
+
+    from repro_torch.models import train_loss
+    from repro_torch.train.optimizer import (OptConfig, adamw_update,
+                                             tree_leaves)
+
+    leaves = tree_leaves(params)
+    oc = OptConfig(lr=1e-5, warmup_steps=1, total_steps=100)
+    parts = []
+    for _ in range(iters):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        loss, _ = train_loss(params, cfg, batch)
+        ev[1].record()
+        grads = torch.autograd.grad(loss, leaves)
+        ev[2].record()
+        adamw_update(params, grads, opt, oc)   # grads in tree_leaves order
+        ev[3].record()
+        torch.cuda.synchronize()
+        parts.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
+        del loss, grads
+    parts.sort(key=sum)
+    fwd, _, (loss, _) = _busy_ms("forward",
+                                 lambda: train_loss(params, cfg, batch))
+    bwd, ranges, grads = _busy_ms(
+        "backward", lambda: torch.autograd.grad(loss, leaves))
+    upd, _, _ = _busy_ms("optimizer",
+                         lambda: adamw_update(params, grads, opt, oc))
+    return parts[len(parts) // 2], [fwd, bwd, upd], ranges
+
+
+def _backward_share(tag, cfg, params, opt, B, S, plain, smi):
+    """The step split of a trained model, and the share of the backward's
+    device time that the backward of the kernel whose plain version is
+    ``plain`` takes."""
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticTokens
+
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in
+             SyntheticTokens(cfg, B, S, seed=1).next_batch().items()}
+    (fwd, bwd, upd), busy, ranges = _step_split(cfg, params, opt, batch)
+    if plain not in ranges:
+        fail(f"train {tag}: no {plain} backward in the profile: {ranges}")
+    step, busy_step = fwd + bwd + upd, sum(busy)
+    remat = (" (with remat's second forward)" if cfg.remat != "none"
+             else "")
+    log(f"[train] {tag} step split, device ms by CUDA events (median of "
+        f"3; waits for the host included) and device busy ms under "
+        f"torch.profiler (one more step): forward {fwd:.2f} (busy "
+        f"{busy[0]:.2f}), backward {bwd:.2f} (busy {busy[1]:.2f}){remat}, "
+        f"optimizer {upd:.2f} (busy {busy[2]:.2f}); the backward is "
+        f"{100 * bwd / step:.1f}% of the step's {step:.2f} ms "
+        f"({100 * busy[1] / busy_step:.1f}% of its {busy_step:.2f} busy "
+        f"ms). The kernels' backward through their plain versions, "
+        f"device ms inside the backward: "
+        + ", ".join(f"{k} {v:.2f} ({100 * v / busy[1]:.1f}% of the "
+                    f"backward's busy time)" for k, v in ranges.items())
+        + f"; {smi}")
+
+
+def _leaf_errs(got, want) -> list:
+    """Each leaf's largest |got - want| over that leaf's max |want|."""
+    return [(g - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
+            for g, w in zip(got, want, strict=True)]
+
+
+def _grad_parity():
+    """(d) Smoke configs of the dense, moe, ssm and hybrid families in
+    float32 and bf16: one ``train_loss`` backward through the kernels and
+    one through the plain versions, on the same float32 masters and
+    batch. Every parameter must have a float32 gradient on both routes,
+    each leaf within TOL[dtype] of the plain route's, relative to its max
+    |grad|.
+
+    Two bf16 cases are held otherwise (measured on the card, PERF.md §6
+    PR 21). (1) bf16 rounds in other places on the two routes (the
+    attention kernel keeps P in bf16), and the plain route is itself up
+    to 3.8% of a leaf's max |grad| from the float32 gradient (zamba2's
+    smoke config): a bf16 leaf outside TOL of the plain route's must be
+    within TOL of being as close to the float32 gradient as the plain
+    route's, |kernel - f32| <= |plain - f32| + TOL. (2) The moe family
+    routes by top-k: the attention kernel's rounding sends a few tokens
+    to other experts (expert counts differ) and the router's gradient
+    moves by 6.1% of its max (the bf16 plain route is 9.1% from float32
+    there). When the counts differ, the gmm kernel is held on the plain
+    route's routing instead (plain attention, the gmm kernel: counts
+    equal, every leaf within TOL); the attention kernel's bf16 gradient
+    is held by the dense family."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.kernels import ops
+    from repro_torch.models import train_loss
+    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.train.trainer import init_train_state
+
+    for arch, (remat, kernels) in GRAD_ARCHS.items():
+        smoke = ARCHS[arch].smoke()
+        gen = torch.Generator(device=DEVICE).manual_seed(11)
+        params, _ = init_train_state(smoke, gen, DEVICE)
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in
+                 SyntheticTokens(smoke, 4, 64, seed=5).next_batch().items()}
+        routes = {"kernels": ("auto", "auto"), "plain": ("ref", "ref")}
+        if smoke.family == "moe":
+            routes["gmm kernel"] = ("ref", "auto")
+        truth = None
+        for dtype in ("float32", "bfloat16"):
+            got = {}
+            for route, (attn, moe) in routes.items():
+                cfg = dataclasses.replace(
+                    smoke, dtype=dtype, attn_impl=attn, moe_impl=moe,
+                    remat=remat if route == "kernels" else "none")
+                ops.reset_launches()
+                loss, metrics = train_loss(params, cfg, batch)
+                try:
+                    grads = torch.autograd.grad(loss, leaves)
+                except RuntimeError as e:        # a leaf without gradient
+                    fail(f"grad parity {arch} {dtype} {route}: {e}")
+                torch.cuda.synchronize()
+                counts = ops.kernel_launches()
+                used = sorted(n for n in TRAIN_KERNELS if counts[n])
+                want = {"kernels": sorted(kernels), "plain": [],
+                        "gmm kernel": ["gmm"]}[route]
+                if used != want or sum(counts.values()) != sum(
+                        counts[n] for n in used):
+                    fail(f"grad parity {arch} {dtype} {route}: launched "
+                         f"{counts}, want {want}")
+                if not all(torch.isfinite(g).all() and g.dtype ==
+                           torch.float32 for g in grads):
+                    fail(f"grad parity {arch} {dtype} {route}: a bad "
+                         "gradient")
+                routing = (metrics["expert_counts"].tolist()
+                           if "expert_counts" in metrics else None)
+                got[route] = (loss.item(), grads, routing)
+            direct = _leaf_errs(got["kernels"][1], got["plain"][1])
+            worst, note = max(direct), ""
+            if dtype == "float32":
+                truth = got["plain"][1]
+                ok = worst <= TOL[dtype]
+            elif got["kernels"][2] != got["plain"][2]:
+                gmm_err = max(_leaf_errs(got["gmm kernel"][1],
+                                         got["plain"][1]))
+                ok = (got["gmm kernel"][2] == got["plain"][2]
+                      and gmm_err <= TOL[dtype])
+                far_plain = max(_leaf_errs(got["plain"][1], truth))
+                note = (f"; routing differs (expert counts "
+                        f"{got['kernels'][2]} vs {got['plain'][2]}; the "
+                        f"plain route {100 * far_plain:.4f}% from "
+                        f"float32), so gmm alone on the plain route's "
+                        f"routing: {100 * gmm_err:.4f}%")
+            else:
+                far = _leaf_errs(got["kernels"][1], truth)
+                far_plain = _leaf_errs(got["plain"][1], truth)
+                outside = [i for i, d in enumerate(direct)
+                           if d > TOL[dtype]]
+                excess = max((far[i] - far_plain[i] for i in outside),
+                             default=0.0)
+                ok = excess <= TOL[dtype]
+                if outside:
+                    note = (f"; {len(outside)} leaves outside it, from the "
+                            f"float32 gradient at most {100 * excess:+.4f}% "
+                            f"beyond the plain route's (kernel route "
+                            f"{100 * max(far):.4f}%, plain "
+                            f"{100 * max(far_plain):.4f}% at worst)")
+            log(f"[train] grad parity {arch} smoke {dtype} (kernel route "
+                f"remat {remat!r}, through {sorted(kernels)}): "
+                f"{len(leaves)} leaves, loss {got['kernels'][0]:.6f} vs "
+                f"{got['plain'][0]:.6f}, largest |kernel - plain| "
+                f"{100 * worst:.4f}% of its leaf's max |grad|, tol "
+                f"{100 * TOL[dtype]:g}%{note} {'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                fail(f"grad parity {arch} {dtype}: {worst:.3e} > "
+                     f"{TOL[dtype]}{note}")
+        del params, leaves
+
+
+def _drill(smi):
+    """(e) --fail-at-step then --resume at the tiny preset against an
+    uninterrupted run, with deterministic algorithms requested."""
+    import tempfile
+    import warnings
+
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train
+    from repro_torch.train.optimizer import tree_leaves
+
+    common = TRAIN_DRILL + ["--device", DEVICE]
+    total = {name: 0 for name in TRAIN_KERNELS}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with tempfile.TemporaryDirectory() as d, \
+                warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            ops.reset_launches()
+            pa, oa, ha = train(common + ["--ckpt-dir", f"{d}/a"])
+            try:
+                train(common + ["--ckpt-dir", f"{d}/b", "--fail-at-step",
+                                "10", "--ckpt-async"])
+            except RuntimeError as e:
+                if "simulated node failure at step 10" not in str(e):
+                    raise
+            else:
+                fail("drill: --fail-at-step 10 did not fail")
+            pb, ob, hb = train(common + ["--ckpt-dir", f"{d}/b",
+                                         "--resume"])
+            torch.cuda.synchronize()
+            counts = ops.kernel_launches()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for name in TRAIN_KERNELS:
+        total[name] += counts[name]
+    a, b = tree_leaves([pa, oa]), tree_leaves([pb, ob])
+    same = all(torch.equal(x, y) for x, y in zip(a, b, strict=True))
+    worst = max((x.float() - y.float()).abs().max().item()
+                for x, y in zip(a, b))
+    notes = sorted({str(w.message).split(".")[0][:100] for w in caught})
+    log(f"[train] drill: 12 steps at the tiny preset against --fail-at-step "
+        f"10 + --resume from step 8: parameters and moments "
+        f"{'bit-exact' if same else 'NOT bit-exact'} (largest difference "
+        f"{worst:.3e}); last loss {ha[-1]['loss']:.6f} vs "
+        f"{hb[-1]['loss']:.6f}; deterministic-algorithm warnings: "
+        f"{notes or 'none'}; {smi}")
+    if not same and worst > 1e-6:
+        fail(f"drill: resumed run differs by {worst:.3e} > 1e-6")
+    return total
+
+
+def phase_train(smi):
+    """Training on the card through ``repro_torch.launch.train``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.train import preset_config
+    from repro_torch.train.optimizer import tree_leaves
+
+    totals = {name: 0 for name in TRAIN_KERNELS}
+
+    def add(counts):
+        for c in counts:
+            for name in TRAIN_KERNELS:
+                totals[name] += c[name]
+
+    # (a) tinyllama-1.1b at full width
+    cfg = ARCHS["tinyllama-1.1b"]
+    B, S = 8, 512
+    params, opt, hist, ms, launches, peak, _ = _train_run(
+        "tinyllama-1.1b full", TRAIN_MAIN, smi)
+    add(launches)
+    drop = hist[0]["loss"] - hist[-1]["loss"]
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    rounds = 2 if cfg.remat != "none" else 1
+    _per_step("tinyllama", launches, "flash_attention",
+              rounds * cfg.n_layers)
+    _per_step("tinyllama", launches, "gmm", 0)
+    p50 = float(np.median(ms[1:]))
+    log(f"[train] tinyllama-1.1b full width: {n_params / 1e9:.4f} B float32 "
+        f"master parameters, {cfg.dtype} compute, remat {cfg.remat!r}, "
+        f"{B} x {S} tokens a step, {len(ms)} steps: loss "
+        f"{hist[0]['loss']:.4f} (step {hist[0]['step']}) -> "
+        f"{hist[-1]['loss']:.4f} (step {hist[-1]['step']}), fell by "
+        f"{drop:.4f} (must fall by {TRAIN_MIN_DROP}); step ms p50 "
+        f"{p50:.2f} (first {ms[0]:.2f}, max of the rest "
+        f"{max(ms[1:]):.2f}), {B * S / p50 * 1e3:.1f} train tokens/s; peak "
+        f"device memory {peak / 2**30:.2f} GiB; flash_attention "
+        f"{launches[-1]['flash_attention']} launches a step "
+        f"({rounds} x {cfg.n_layers} layers); {smi}")
+    if drop < TRAIN_MIN_DROP:
+        fail(f"train: tinyllama-1.1b loss fell by {drop:.4f} < "
+             f"{TRAIN_MIN_DROP}")
+    _backward_share("tinyllama-1.1b", cfg, params, opt, B, S,
+                    "attention_ref", smi)
+    del params, opt
+    torch.cuda.empty_cache()
+
+    # (b) moonshot-v1-16b-a3b at the 100m preset, rebalancing
+    mcfg = preset_config(ARCHS[MOE], "100m")
+    params, opt, hist, ms, launches, peak, lines = _train_run(
+        f"{MOE} 100m", TRAIN_MOE, smi)
+    add(launches)
+    _per_step("moe", launches, "gmm", 3 * mcfg.n_layers)
+    _per_step("moe", launches, "flash_attention", mcfg.n_layers)
+    rebal = [ln for ln in lines if "GLB-MoE rebalance" in ln]
+    if len(rebal) != 2:
+        fail(f"train moe: {len(rebal)} rebalance lines, want 2")
+    log(f"[train] {MOE} 100m preset ({mcfg.n_layers} layers, "
+        f"{mcfg.n_experts} experts top-{mcfg.top_k}, {mcfg.dtype}): loss "
+        f"{hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}; step ms p50 "
+        f"{float(np.median(ms[1:])):.2f}; gmm {launches[-1]['gmm']} "
+        f"launches a step; peak {peak / 2**30:.2f} GiB; {smi}")
+    _backward_share(f"{MOE} 100m", mcfg, params, opt, 8, 128, "gmm_ref",
+                    smi)
+    del params, opt
+    torch.cuda.empty_cache()
+
+    # (c) mamba2-130m at full width
+    scfg = ARCHS["mamba2-130m"]
+    params, opt, hist, ms, launches, peak, _ = _train_run(
+        "mamba2-130m full", TRAIN_SSM, smi)
+    add(launches)
+    rounds = 2 if scfg.remat != "none" else 1
+    _per_step("ssm", launches, "ssd_chunked", rounds * scfg.n_layers)
+    p50 = float(np.median(ms[1:]))
+    log(f"[train] mamba2-130m full width ({scfg.dtype}, remat "
+        f"{scfg.remat!r}): loss {hist[0]['loss']:.4f} -> "
+        f"{hist[-1]['loss']:.4f}; step ms p50 {p50:.2f}, "
+        f"{8 * 512 / p50 * 1e3:.1f} train tokens/s; ssd_chunked "
+        f"{launches[-1]['ssd_chunked']} launches a step; peak "
+        f"{peak / 2**30:.2f} GiB; {smi}")
+    if not hist[-1]["loss"] < hist[0]["loss"]:
+        fail("train: mamba2-130m loss did not fall")
+    _backward_share("mamba2-130m", scfg, params, opt, 8, 512,
+                    "ssd_chunked_ref", smi)
+    del params, opt
+    torch.cuda.empty_cache()
+
+    # (d) gradient parity, (e) the failure / resume drill
+    _grad_parity()
+    drill = _drill(smi)
+    for name in TRAIN_KERNELS:
+        totals[name] += drill[name]
+    log(f"[train] launches over the training runs: {totals}")
+    return totals
+
+
 # --------------------------------------------------------------- main
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
@@ -2789,26 +3271,32 @@ def main() -> int:
     zoo_launches = timed(phase_zoo)
     rows["uts_expand"], uts_launches = timed(phase_glb)
     timed(phase_parity, params, mamba)
+    del params, mamba
+    torch.cuda.empty_cache()
+    trained = timed(phase_train, smi)
     log(f"[time] all phases: {time.time() - t_start:.1f} s")
     all_steps = sum(steps.values())
     for name in ATTENTION:
         mig = mig_launches.get(name, 0)
+        train = trained.get(name, 0)
         rows[name]["launches"] = (totals[name] + moe_launches[name] + mig
-                                  + zoo_launches[name])
+                                  + zoo_launches[name] + train)
         log(f"[summary] {name}: {rows[name]['launches']} launches: "
             f"{totals[name]} over {all_steps} engine steps of the "
             f"tinyllama-1.1b runs ({totals[name] / all_steps:.2f} per "
             f"step), {moe_launches[name]} over the {MOE} runs, {mig} "
             f"over the migrate phase's three runs, {zoo_launches[name]} "
-            "over the zoo phase's runs")
-    rows["gmm"]["launches"] = moe_launches["gmm"]
-    log(f"[summary] gmm: {moe_launches['gmm']} launches over the three "
-        f"{MOE} runs")
-    rows["ssd_chunked"]["launches"] = ssd_launches + zoo_launches[
-        "ssd_chunked"]
+            f"over the zoo phase's runs, {train} over the training runs")
+    rows["gmm"]["launches"] = moe_launches["gmm"] + trained["gmm"]
+    log(f"[summary] gmm: {rows['gmm']['launches']} launches: "
+        f"{moe_launches['gmm']} over the three {MOE} runs, "
+        f"{trained['gmm']} over the training runs")
+    rows["ssd_chunked"]["launches"] = (ssd_launches + zoo_launches[
+        "ssd_chunked"] + trained["ssd_chunked"])
     log(f"[summary] ssd_chunked: {rows['ssd_chunked']['launches']} "
         f"launches: {ssd_launches} in the mamba2-130m fabric run, "
-        f"{zoo_launches['ssd_chunked']} in the zamba2-7b runs")
+        f"{zoo_launches['ssd_chunked']} in the zamba2-7b runs, "
+        f"{trained['ssd_chunked']} over the training runs")
     rows["uts_expand"]["launches"] = uts_launches
     log(f"[summary] uts_expand: {uts_launches} launches in the UTS run on "
         f"{UTS_P} places")

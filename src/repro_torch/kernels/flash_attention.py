@@ -18,6 +18,7 @@ import math
 import torch
 
 from . import _build
+from .autograd import KernelFunction, needs_grad
 
 
 def attention_ref(q, k, v, causal: bool = True, scale: float | None = None):
@@ -53,9 +54,19 @@ def flash_attention(q, k, v, *, causal: bool = True,
     """q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D) -> (B, Sq, Hq, D).
 
     A CPU tensor goes to ``attention_ref``; a CUDA tensor launches the
-    kernel of its dtype (or raises)."""
+    kernel of its dtype (or raises). Where autograd needs the gradient,
+    the launch runs inside ``KernelFunction``, whose backward is that of
+    ``attention_ref``."""
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, scale=scale)
+    if needs_grad(q, k, v):
+        return KernelFunction.apply(_launch, attention_ref, q, k, v, causal,
+                                    scale)
+    return _launch(q, k, v, causal, scale)
+
+
+def _launch(q, k, v, causal, scale):
+    """One counted launch of the kernel of q's dtype."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     B, Sq, Hq, D = q.shape

@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .autograd import KernelFunction, needs_grad
 
 MAX_CHUNK = 64      # the kernel's longest chunk
 MAX_STATE = 256     # the kernel's largest N
@@ -169,9 +170,19 @@ def ssd_chunked(x, dt, A, B, C, *, chunk: int = 64):
 
     A CPU tensor goes to ``ssd_chunked_ref``; a CUDA tensor launches
     ``ssd_chunked_kernel`` (or raises), in either dtype: chunk lengths up
-    to 64, N a multiple of 4 up to 256."""
+    to 64, N a multiple of 4 up to 256. Where autograd needs the
+    gradient, the launch runs inside ``KernelFunction``, whose backward is
+    that of ``ssd_chunked_ref`` at the same chunk (a None gradient of h
+    counts as zeros)."""
     if x.device.type == "cpu":
         return ssd_chunked_ref(x, dt, A, B, C, chunk=chunk)
+    if needs_grad(x, dt, A, B, C):
+        return KernelFunction.apply(_counted, ssd_chunked_ref, x, dt, A, B,
+                                    C, chunk)
+    return _counted(x, dt, A, B, C, chunk)
+
+
+def _counted(x, dt, A, B, C, chunk):
     out = _launch(x, dt, A, B, C, chunk)
     ssd_chunked.launches += 1
     return out

@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .autograd import KernelFunction, needs_grad
 
 
 def gmm_ref(x, w, group_sizes):
@@ -45,9 +46,18 @@ def gmm(x, w, group_sizes):
     group_sizes (E,) int32 -> (T, F) in x's dtype.
 
     A CPU tensor goes to ``gmm_ref``; a CUDA tensor launches the kernel
-    (or raises)."""
+    (or raises). Where autograd needs the gradient, the launch runs
+    inside ``KernelFunction``, whose backward is that of ``gmm_ref``
+    (``group_sizes`` gets none)."""
     if x.device.type == "cpu":
         return gmm_ref(x, w, group_sizes)
+    if needs_grad(x, w):
+        return KernelFunction.apply(_launch, gmm_ref, x, w, group_sizes)
+    return _launch(x, w, group_sizes)
+
+
+def _launch(x, w, group_sizes):
+    """One counted launch of the kernel of x's dtype."""
     if x.device.type != "cuda":
         raise ValueError(f"gmm: unsupported device {x.device}")
     if x.dim() != 2 or w.dim() != 3 or w.shape[1] != x.shape[1]:

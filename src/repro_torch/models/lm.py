@@ -1,4 +1,4 @@
-"""Task-level entry points: prefill, decode, sampling."""
+"""Task-level entry points: training loss, prefill, decode, sampling."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
@@ -7,6 +7,48 @@ import torch
 
 from .config import ModelConfig
 from .transformer import forward, make_cache
+
+AUX_LOSS_WEIGHT = 0.01
+
+
+def _xent(logits, targets, vocab: int):
+    """Cross-entropy per position on the unpadded vocab slice, float32
+    math; logits (..., Vp), targets (...) int."""
+    lg = logits[..., :vocab].float()
+    lse = torch.logsumexp(lg, dim=-1)
+    gold = lg.gather(-1, targets[..., None].long())[..., 0]
+    return lse - gold
+
+
+def train_loss(params, cfg: ModelConfig, batch: Dict[str, Any]):
+    """Next-token loss of ``batch``: {"tokens": (B, S)}, (B, S, K) for
+    audio (the mean over codebooks), or for vlm {"embeds", "positions",
+    "labels"}. Returns (loss, metrics) with the JAX package's metric names:
+    ``ce_loss`` and ``loss``, and for moe ``aux_loss`` (per layer; the
+    loss adds ``AUX_LOSS_WEIGHT`` of it), ``expert_counts`` and
+    ``dropped_frac``."""
+    if cfg.family == "vlm":
+        logits, _, aux = forward(params, cfg, embeds=batch["embeds"],
+                                 positions=batch.get("positions"),
+                                 mode="train")
+        per_tok = _xent(logits[:, :-1], batch["labels"][:, 1:], cfg.vocab)
+    else:
+        tokens = batch["tokens"]
+        logits, _, aux = forward(params, cfg, tokens, mode="train")
+        per_tok = _xent(logits[:, :-1], tokens[:, 1:], cfg.vocab)
+        if cfg.n_codebooks:
+            per_tok = per_tok.mean(-1)
+    loss = per_tok.mean()
+    metrics = {"ce_loss": loss}
+    if cfg.family == "moe":
+        aux_l = aux["aux_loss"] / cfg.n_layers
+        loss = loss + AUX_LOSS_WEIGHT * aux_l
+        metrics["aux_loss"] = aux_l
+        metrics["expert_counts"] = aux["expert_counts"]
+        metrics["dropped_frac"] = aux["dropped"] / (
+            float(per_tok.numel()) * cfg.top_k * cfg.n_layers)
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 def prefill(params, cfg: ModelConfig, batch: Dict[str, Any], max_seq: int):

@@ -15,16 +15,28 @@ mlp}), one set of tensors that every application reads. The audio family
 streams, and ``head`` (K, D, Vp), logits (B, S, K, Vp). The vlm family
 (qwen2-vl) takes precomputed merged embeddings (B, S, D) and M-RoPE
 positions (B, S, 3) instead of tokens (the vision tower is a stub, as in
-the JAX package). Matrices are stored in the compute dtype ``cfg.dtype``,
-norm scales (and Mamba2's ``A_log``, ``D``, ``dt_bias``) in float32 (the
-JAX version stores float32 masters and casts to the compute dtype on every
-use, which rounds to the same values).
+the JAX package). For serving, matrices are stored in the compute dtype
+``cfg.dtype``, norm scales (and Mamba2's ``A_log``, ``D``, ``dt_bias``) in
+float32 (the JAX version stores float32 masters and casts to the compute
+dtype on every use, which rounds to the same values). Training keeps
+float32 masters as JAX does (``init_lm(..., dtype=torch.float32)``): in
+``mode="train"`` each layer casts its matrices, biases and convs to the
+compute dtype inside its body, so that remat recomputes the cast copy
+and the gradients arrive in float32.
+
+``cfg.remat`` applies in ``mode="train"`` while autograd records: each
+layer's body runs under ``torch.utils.checkpoint`` (non-reentrant);
+``none`` saves every activation, ``full`` none of the layer's, ``dots``
+the outputs of its matrix products (``aten.mm`` / ``aten.addmm``, JAX's
+``dots_with_no_batch_dims_saveable``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from .attention import attn_fwd, attn_init
 from .config import ModelConfig
@@ -38,6 +50,22 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+REMATS = ("none", "dots", "full")
+
+# Leaves kept in float32 whatever the compute dtype, as the JAX math uses
+# them: norm scales, and Mamba2's A_log, D, dt_bias (cast at use by
+# ``mamba_fwd``).
+F32_LEAVES = ("ln1", "ln2", "final_ln", "ln", "gate_norm", "A_log", "D",
+              "dt_bias")
+
+
+def cast_params(tree, dtype: torch.dtype):
+    """The matrices, biases and conv weights of ``tree`` (nested dicts of
+    tensors) cast to ``dtype``; the ``F32_LEAVES`` stay as they are. A
+    leaf already in ``dtype`` is returned, not copied."""
+    return {k: (cast_params(v, dtype) if isinstance(v, dict)
+                else v if k in F32_LEAVES else v.to(dtype))
+            for k, v in tree.items()}
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -55,12 +83,15 @@ def _attn_mlp_init(cfg: ModelConfig, generator, device, dt):
 
 
 def init_lm(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
-            device=None) -> Dict[str, Any]:
+            device=None, dtype: Optional[torch.dtype] = None
+            ) -> Dict[str, Any]:
     """Random weights with the distributions of ``repro.models.init_lm``
-    (not its random numbers). ``generator`` must live on ``device``."""
+    (not its random numbers). ``generator`` must live on ``device``.
+    Matrices are stored in ``dtype`` (default ``cfg.dtype``; training
+    passes float32), the ``F32_LEAVES`` in float32."""
     _check_family(cfg)
     device = resolve_device(device)
-    dt = compute_dtype(cfg)
+    dt = dtype or compute_dtype(cfg)
     Vp, D = cfg.padded_vocab, cfg.d_model
     K = (cfg.n_codebooks,) if cfg.n_codebooks else ()
     params: Dict[str, Any] = {
@@ -176,14 +207,25 @@ def _attention(cfg, bp, x, positions, cache, ci, cache_len, mode,
     return x + h
 
 
+def _applies_shared(cfg: ModelConfig, li: int) -> bool:
+    return cfg.family == "hybrid" and (li + 1) % cfg.attn_every == 0
+
+
 def apply_layer(params, cfg: ModelConfig, li: int, x, positions,
                 cache=None, cache_len=None, mode: str = "train",
                 block_tables=None):
     """Layer ``li`` on x (B, S, D) and, for the hybrid family, the shared
     block where it follows that layer. Returns (x, aux): aux is the
     layer's MoE routing statistics (None for the other families)."""
+    return _layer(cfg, params["blocks"][li], params.get("shared"), li, x,
+                  positions, cache, cache_len, mode, block_tables)
+
+
+def _layer(cfg, bp, sp, li, x, positions, cache, cache_len, mode,
+           block_tables):
+    """``apply_layer`` on the layer's parameters ``bp`` and the shared
+    block's ``sp``."""
     if cfg.family in ("ssm", "hybrid"):
-        bp = params["blocks"][li]
         # Per-slot lengths in decode: -1 marks a slot whose state stays.
         active = (cache_len >= 0 if mode == "decode"
                   and torch.is_tensor(cache_len) and cache_len.dim() == 1
@@ -192,15 +234,13 @@ def apply_layer(params, cfg: ModelConfig, li: int, x, positions,
         h, _ = mamba_fwd(bp["mamba"], rmsnorm(x, bp["ln"], cfg.norm_eps),
                          cfg, cache=mcache, mode=mode, active=active)
         x = x + h
-        if cfg.family == "hybrid" and (li + 1) % cfg.attn_every == 0:
+        if _applies_shared(cfg, li):
             # The shared block, on its application's own k/v layer.
-            sp = params["shared"]
             x = _attention(cfg, sp, x, positions, cache,
                            (li + 1) // cfg.attn_every - 1, cache_len, mode,
                            block_tables)
             x = x + mlp_fwd(sp["mlp"], rmsnorm(x, sp["ln2"], cfg.norm_eps))
         return x, None
-    bp = params["blocks"][li]
     x = _attention(cfg, bp, x, positions, cache, li, cache_len, mode,
                    block_tables)
     hin = rmsnorm(x, bp["ln2"], cfg.norm_eps)
@@ -208,6 +248,34 @@ def apply_layer(params, cfg: ModelConfig, li: int, x, positions,
         h, aux = moe_fwd(bp["moe"], hin, cfg)
         return x + h, aux
     return x + mlp_fwd(bp["mlp"], hin), None
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The ``dots`` remat policy: keep matrix products' outputs."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _train_layer(params, cfg: ModelConfig, li: int, x, positions):
+    """Layer ``li`` in training: its float32 masters cast to the compute
+    dtype inside the body, the body under ``cfg.remat``."""
+    def body(x):
+        dt = compute_dtype(cfg)
+        sp = (cast_params(params["shared"], dt)
+              if _applies_shared(cfg, li) else None)
+        return _layer(cfg, cast_params(params["blocks"][li], dt), sp, li,
+                      x, positions, None, None, "train", None)
+
+    if cfg.remat not in REMATS:
+        raise ValueError(f"unknown remat {cfg.remat!r}; have {REMATS}")
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return body(x)
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            _ckpt.create_selective_checkpoint_contexts, _save_dots)
+    return _ckpt.checkpoint(body, x, use_reentrant=False, **kw)
 
 
 def run_layers(params, cfg: ModelConfig, x, positions, cache, cache_len,
@@ -218,8 +286,11 @@ def run_layers(params, cfg: ModelConfig, x, positions, cache, cache_len,
     does."""
     aux = _zero_aux(cfg, x.device)
     for li in range(cfg.n_layers):
-        x, layer_aux = apply_layer(params, cfg, li, x, positions, cache,
-                                   cache_len, mode, block_tables)
+        if mode == "train":
+            x, layer_aux = _train_layer(params, cfg, li, x, positions)
+        else:
+            x, layer_aux = apply_layer(params, cfg, li, x, positions, cache,
+                                       cache_len, mode, block_tables)
         if layer_aux is not None:
             for k in aux:
                 aux[k] = aux[k] + layer_aux[k]
@@ -252,6 +323,11 @@ def forward(params, cfg: ModelConfig, tokens=None, positions=None,
     streams under M-RoPE). Returns (logits (B, S, Vp) or (B, S, K, Vp),
     cache, aux); the cache, when given, is updated in place."""
     _check_family(cfg)
+    if mode == "train":
+        # Embedding and head as the compute dtype's copies of the masters
+        # (the layers cast their own inside their bodies).
+        top = {k: params[k] for k in ("embed", "head") if k in params}
+        params = dict(params, **cast_params(top, compute_dtype(cfg)))
     if embeds is not None:
         x = embeds.to(compute_dtype(cfg))
     else:

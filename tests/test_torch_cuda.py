@@ -1031,3 +1031,150 @@ def test_hybrid_engine_on_the_card(card, paged):
             assert sum(counts.values()) == 0
         outs.append([r.out for r in reqs])
     assert outs[0] == outs[1]
+
+
+# ------------------------------------------------- training: autograd
+# Each kernel's gradient goes through its plain version, recomputed from
+# the saved inputs (``kernels/autograd.py``), so for one call the kernel
+# route's input gradients equal the plain route's exactly (the same
+# backward on the same inputs and output gradient); the forward outputs
+# differ within the limits above.
+def _grad_routes(fn, plain, args, outs_used=(0,)):
+    """(kernel-route outputs, gradients; plain-route outputs, gradients)
+    of sum(out * w) over the used outputs, one launch counted."""
+    res = []
+    for route, f in (("kernel", fn), ("plain", plain)):
+        leaves = [a.detach().requires_grad_(a.is_floating_point())
+                  if torch.is_tensor(a) else a for a in args]
+        ops.reset_launches()
+        outs = f(*leaves)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        torch.cuda.synchronize()
+        launched = sum(ops.kernel_launches().values())
+        assert launched == (1 if route == "kernel" else 0)
+        assert all(o.grad_fn is not None for o in outs)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        loss = sum((outs[i].float() * torch.randn(
+            outs[i].shape, device="cuda", generator=gen)).sum()
+            for i in outs_used)
+        wrt = [a for a in leaves if torch.is_tensor(a) and a.requires_grad]
+        grads = torch.autograd.grad(loss, wrt)
+        assert all(g is not None and torch.isfinite(g).all() for g in grads)
+        res.append((outs, grads))
+    return res
+
+
+def _same_grads(res):
+    (_, got), (_, want) = res
+    for g, w in zip(got, want, strict=True):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,Hq,Hkv,D", [
+    (8, 512, 32, 4, 64),            # tinyllama-1.1b, batch 8 x seq 512
+    (2, 128, 12, 4, 64),            # the 100m preset
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_gradient_through_the_kernel(card, dtype, B, S, Hq,
+                                                     Hkv, D):
+    q, k, v = _attn_inputs(S + D, B, S, S, Hq, Hkv, D, dtype)
+    res = _grad_routes(
+        lambda *a: flash_attention(*a, causal=True),
+        lambda *a: attention_ref(*a, causal=True), (q, k, v))
+    err = (res[0][0][0].float() - res[1][0][0].float()).abs().max().item()
+    assert err <= ATTN_TOL[dtype], err
+    _same_grads(res)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sizes,T,D,F", [
+    ([320, 256, 0, 300, 200, 280, 312, 250], 2560, 768, 2048),  # 100m preset
+    ([0, 5, 0, 40, 17, 0, 3], 80, 72, 100),  # empty groups, rows past them
+])
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 0.0),
+                                       (torch.bfloat16, 2.0 ** -6)])
+def test_gmm_gradient_through_the_kernel(card, sizes, T, D, F, dtype, rel):
+    x, w, gs = _gmm_inputs(T + F, sizes, T, D, F, dtype)
+    res = _grad_routes(gmm, gmm_ref, (x, w, gs))
+    assert _close(res[0][0][0], res[1][0][0], rel)
+    _same_grads(res)
+    dx = res[0][1][0]
+    assert (dx[min(sum(sizes), T):] == 0).all()     # rows past the groups
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("used", [(0,), (0, 1)])
+@pytest.mark.parametrize("dtype,rel", SSD_RELS)
+def test_ssd_chunked_gradient_through_the_kernel(card, dtype, rel, used):
+    """mamba2-130m's training shape (8 x 512 tokens, 24 heads of 64, N
+    128); with h unused its gradient counts as zeros."""
+    x, dt, A, B, C = _inputs(5, 8, 512, 24, 64, 128)
+    args = (x.to(dtype), dt, A, B, C)
+    res = _grad_routes(lambda *a: ssd_chunked(*a, chunk=64),
+                       lambda *a: ssd_chunked_ref(*a, chunk=64), args, used)
+    assert _close(res[0][0][0], res[1][0][0], rel)
+    assert _close(res[0][0][1], res[1][0][1], 0.0)
+    _same_grads(res)
+
+
+@pytest.mark.cuda
+def test_inference_mode_takes_no_autograd_route(card):
+    """Serving runs under torch.inference_mode(): inputs that require grad
+    still launch the kernel once, directly, with the output of a call
+    made without grad, and no grad_fn."""
+    q, k, v = _attn_inputs(3, 1, 64, 64, 8, 2, 64, torch.bfloat16)
+    x, w, gs = _gmm_inputs(4, [3, 5], 8, 64, 32, torch.bfloat16)
+    s = _inputs(6, 1, 64, 4, 16, 16)
+    calls = {"flash_attention": (lambda *a: flash_attention(*a),
+                                 (q, k, v)),
+             "gmm": (gmm, (x, w, gs)),
+             "ssd_chunked": (lambda *a: ssd_chunked(*a, chunk=64), s)}
+    for name, (fn, args) in calls.items():
+        want = fn(*args)
+        leaves = [a.detach().requires_grad_(a.is_floating_point())
+                  for a in args]
+        ops.reset_launches()
+        with torch.inference_mode():
+            got = fn(*leaves)
+        torch.cuda.synchronize()
+        assert ops.kernel_launches()[name] == 1
+        for g, w_ in zip(got if isinstance(got, tuple) else (got,),
+                         want if isinstance(want, tuple) else (want,)):
+            assert g.grad_fn is None
+            assert torch.equal(g, w_)
+
+
+@pytest.mark.cuda
+def test_engine_with_float32_masters_that_require_grad_serves_as_before(
+        card):
+    """The engine serves from parameters that require grad (training's
+    float32 masters) exactly as from detached copies: the same tokens and
+    the same launch counts, none through the autograd route."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.serve import Engine, Request
+    from repro_torch.train.optimizer import tree_map
+    from repro_torch.train.trainer import init_train_state
+
+    cfg = ARCHS["tinyllama-1.1b"].smoke()
+    params, _ = init_train_state(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    detached = tree_map(lambda t: t.detach().clone(), params)
+    tree_map(lambda t: t.requires_grad_(True), params)
+    outs, counts = [], []
+    for p in (params, detached):
+        reqs = [Request(rid=i, prompt=[3, i + 1, 4, 7, 2, 9][: 3 + i],
+                        max_new=8 + 2 * i) for i in range(3)]
+        eng = Engine(cfg, p, device="cuda", max_slots=2, max_seq=64,
+                     pad_len=16, steps_per_sync=4)
+        ops.reset_launches()
+        for r in reqs:
+            eng.submit(r)
+        while eng.load:
+            eng.step()
+        torch.cuda.synchronize()
+        outs.append([r.out for r in reqs])
+        counts.append(ops.kernel_launches())
+    assert outs[0] == outs[1]
+    assert counts[0] == counts[1]
+    assert counts[0]["flash_attention"] > 0 and counts[0]["flash_decode"] > 0

@@ -1,6 +1,8 @@
-"""The port stands alone: neither ``repro_torch`` nor ``chip_smoke.py``
-imports JAX or the JAX package, and an entry point asked for CUDA on a
-machine without it raises instead of running on the CPU."""
+"""The port stands alone: neither ``repro_torch`` (its training
+subpackages ``train``, ``data``, ``ft`` and ``launch`` included) nor
+``chip_smoke.py`` imports JAX or the JAX package, and an entry point asked
+for CUDA on a machine without it (the training CLI by default) raises
+instead of running on the CPU."""
 import ast
 import os
 import pkgutil
@@ -67,7 +69,11 @@ def test_importing_every_module_loads_no_jax():
               "repro_torch.configs.qwen2_vl_2b",
               "repro_torch.configs.musicgen_medium",
               "repro_torch.configs.mistral_nemo_12b",
-              "repro_torch.configs.qwen1_5_110b"):
+              "repro_torch.configs.qwen1_5_110b",
+              "repro_torch.kernels.autograd",
+              "repro_torch.train.optimizer", "repro_torch.train.trainer",
+              "repro_torch.data.pipeline", "repro_torch.ft.checkpoint",
+              "repro_torch.launch.train"):
         assert m in mods, m
     assert len(mods) > 20
     code = (
@@ -109,6 +115,8 @@ def test_chip_smoke_fails_without_card_or_alone(tmp_path):
 def test_cuda_requested_without_cuda_raises(monkeypatch):
     from repro_torch.configs import ARCHS
     from repro_torch.core import GLB, run_sim
+    from repro_torch.launch.train import train
+    from repro_torch.train.trainer import init_train_state
     from repro_torch.problems.fib import fib_problem
     from repro_torch.models import init_lm, make_cache
     from repro_torch.serve import Engine, GLBReplicaBalancer
@@ -142,6 +150,11 @@ def test_cuda_requested_without_cuda_raises(monkeypatch):
                  lambda: init_lm(ARCHS["musicgen-medium"].smoke()),
                  lambda: run_sim(fib_problem(8), 2),        # default: cuda
                  lambda: run_sim(fib_problem(8), 2, device="cuda"),
-                 lambda: GLB(fib_problem(8), P=2).run()):
+                 lambda: GLB(fib_problem(8), P=2).run(),
+                 lambda: init_train_state(cfg),             # default: cuda
+                 lambda: train(["--arch", "tinyllama-1.1b", "--steps",
+                                "1"]),                      # default: cuda
+                 lambda: train(["--arch", "mamba2-130m", "--steps", "1",
+                                "--device", "cuda"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
