@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase dist   # phases 1, 2 and 9 alone
 
 Phases, in order; any failure exits non-zero:
   1. device  — requires CUDA; prints the card's name and power limit.
@@ -160,11 +161,47 @@ Phases, in order; any failure exits non-zero:
                against plain route (see ``_grad_parity``). (e) the
                --fail-at-step / --resume drill at the tiny preset against
                an uninterrupted run: bit-exact.
+  9. dist   — distribution, on ranks that are processes sharing the card
+               (spawned; gloo, whose collectives dist/collectives.py
+               stages through host memory; NCCL only at world size 1,
+               since it refuses two ranks on one device). Every line
+               names its backend and world size. (a) GLB(mode=
+               "shard_map") on 8 ranks, one place each: the paper's UTS
+               (b0 4, r 19) at depth 9 (10 with --phase dist, which runs
+               phases 1, 2 and 9 alone; DIST_SIZES) with n 256, w 2,
+               steal_k 64, in
+               the dense and the lifeline routing: the count must equal
+               the breadth-first count, the supersteps and every counter
+               run_sim's on 8 places of the card, every rank must launch
+               uts_expand; nodes/s, host ms per superstep by phase and
+               the wire bytes per superstep against the count from the
+               code. (b) fib(20) (24) and BC on R-MAT scale 10 on 8 ranks
+               against their oracles and run_sim. (c) UTS at depth 7 (9)
+               on NCCL at world size 1 against run_sim on one place. On 4
+               ranks: (d) one full-width moonshot-v1-16b-a3b MoE layer
+               expert-parallel as (1 data x 4 model) and (2 x 2), bf16
+               and f32, capacity 1.25: each data shard's y within TOL of
+               the plain route (gmm_ref) on that shard, counts and drops
+               equal, gmm launched on every rank, timed beside the global
+               layer on one rank; (e) tinyllama-1.1b at full width as a
+               2-stage pipeline of 4 microbatches of (2, 256) tokens,
+               bf16: bit for bit the sequential forward, within TOL of it
+               with the plain attention (or as close to the float32
+               forward as that, plus TOL), flash_attention launched on
+               both stages; (f) compressed_psum_mean over
+               one full-width tinyllama layer's gradient-shaped leaves
+               against the host rendering of its formula, timed beside a
+               plain all_reduce, and the 60-step regression; (g) the
+               sharding rules of all ten archs at full width on the
+               production meshes' shapes, and tinyllama's parameters on
+               a (2 x 2) mesh: local shard shapes as specified, the
+               host-staged reassembly bit for bit.
 The last two lines of standard output are one JSON object with each
 kernel's numbers and the contract line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import os
@@ -3239,8 +3276,744 @@ def phase_train(smi):
     return totals
 
 
+# ------------------------------------------------------------ phase 9
+# Distribution: ranks are processes on cuda:0, their collectives through
+# gloo and staged through host memory (dist/collectives.py); NCCL runs at
+# world size 1 only (it refuses two ranks on one card).
+# Sizes of (a) to (c). Run alone (``--phase dist``), the phase takes UTS at
+# depth 10 (1,962,542 nodes; depth 11 would take some 20 minutes on
+# ranks that time-slice one card), fib(24) and NCCL at depth 9. In the
+# whole run, which must end within 1200 s, phases 1-8 take 700-760 s, so
+# the sizes are cut: depth 9, fib(20), NCCL at depth 7 (PERF.md §6).
+DIST_SIZES = {
+    "alone": dict(uts=dict(UTS_TREE, depth=10), fib=dict(n=24),
+                  nccl=dict(UTS_TREE, depth=9)),
+    "whole": dict(uts=dict(UTS_TREE, depth=9), fib=dict(n=20),     # 490,807
+                  nccl=dict(UTS_TREE, depth=7)),                    # 30,688
+}
+DIST_WORLD = 8
+DIST_FIB_PARAMS = dict(n=16, steal_k=16)
+DIST_BC = dict(scale=10, seed=7)
+DIST_BC_PARAMS = dict(n=8, steal_k=8)
+EP_WORLD = 4
+EP_TOKENS = (8, 256)                          # x (8, 256, d_model)
+EP_LAYOUTS = ((1, 4), (2, 2))                 # (data, model)
+PIPE = dict(arch="tinyllama-1.1b", stages=2, micro=4, batch=2, seq=256)
+COMPRESS_STEPS = 60
+DIST_KERNELS = ("uts_expand", "gmm", "flash_attention")
+
+
+def _sync(device):
+    import torch
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def _dist_problem(kind, kw):
+    from repro_torch.problems import bc, fib, rmat, uts
+
+    if kind == "uts":
+        return uts.uts_problem(**kw)
+    if kind == "fib":
+        return fib.fib_problem(**kw)
+    return bc.bc_problem(rmat.rmat_graph(**kw)[0])
+
+
+def _dist_glb_rank(device, cases):
+    """One rank of ``GLB(mode="shard_map")`` over a (world,) ``place``
+    mesh: each case run once; its result, counters, host ms by phase,
+    wire bytes, this rank's kernel launches and wall time."""
+    import torch.distributed as dist
+
+    from repro_torch.core import GLB, GLBParams
+    from repro_torch.dist import collectives as C
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_glb_mesh
+
+    mesh = make_glb_mesh(n=dist.get_world_size(), device_type=device)
+    out = []
+    for label, kind, kw, params, routing in cases:
+        glb = GLB(_dist_problem(kind, kw), GLBParams(**params), mesh=mesh,
+                  mode="shard_map", routing=routing, device=device)
+        dist.barrier()
+        _sync(device)
+        ops.reset_launches()
+        C.reset_wire()
+        t0 = time.perf_counter()
+        glb.run(seed=0)
+        _sync(device)
+        r = glb.last_run
+        out.append(dict(
+            label=label, wall=time.perf_counter() - t0, result=r.result,
+            per_place=r.per_place, stats=r.stats, supersteps=r.supersteps,
+            host_ms=r.host_ms, wire_bytes=r.wire_bytes, wire=C.wire_bytes(),
+            launches=ops.kernel_launches(), backend=dist.get_backend()))
+    return out
+
+
+def _sim(label, kind, kw, params, P):
+    """run_sim on the card: the counters the distributed run must equal."""
+    import torch
+
+    from repro_torch.core import GLBParams, run_sim
+
+    _sync(DEVICE)
+    t0 = time.time()
+    r = run_sim(_dist_problem(kind, kw), P, GLBParams(**params), seed=0,
+                device=DEVICE)
+    _sync(DEVICE)
+    log(f"[dist run_sim x1] {label} on {P} places of one {DEVICE}: "
+        f"{r.supersteps} supersteps, {time.time() - t0:.2f} s")
+    host = lambda t: t.cpu().numpy() if torch.is_tensor(t) else t
+    return dict(result=host(r.result), per_place=host(r.per_place),
+                stats={k: host(v) for k, v in r.stats.items()},
+                supersteps=r.supersteps)
+
+
+def _wire_per_superstep(kind, params, routing, P):
+    """The bytes a rank hands to the collectives in one superstep, from the
+    code: the (size, in-state work) gather; dense: a (P, K, item) buffer
+    per item field and the (P,) counts; lifeline: z packets of K items and
+    a count, plus the dense buffer of the random round unless w == 0."""
+    import numpy as np
+
+    from repro_torch.core import GLBParams
+
+    from repro_torch.problems import bc, fib, uts
+
+    p = GLBParams(**params)
+    spec = {"uts": uts, "fib": fib, "bc": bc}[kind].ITEM_SPEC
+    item = sum(int(np.prod(s, dtype=np.int64)) * dt.itemsize
+               for s, dt in spec.values())
+    K, z = p.steal_k, p.resolve_z(P)
+    dense = P * (p.steal_k_random or K) * item + P * 4
+    if routing == "dense":
+        return 8 + P * K * item + P * 4
+    return 8 + z * (K * item + 4) + (dense if p.w else 0)
+
+
+def _dist_check(tag, case, rows, sim, exact, want=None):
+    """Every rank the same run, equal to run_sim in supersteps and every
+    counter (and per-place results, exactly or, for BC, to rtol 1e-5)."""
+    import numpy as np
+
+    label, kind, kw, params, routing = case
+    r0 = rows[0]
+    for r in rows:
+        if (r["supersteps"] != r0["supersteps"]
+                or not np.array_equal(r["result"], r0["result"])
+                or any(not np.array_equal(r["stats"][k], r0["stats"][k])
+                       for k in r0["stats"])):
+            fail(f"{tag} {label}: ranks disagree")
+    same = (r0["supersteps"] == sim["supersteps"] and all(
+        np.array_equal(r0["stats"][k], sim["stats"][k]) for k in sim["stats"]))
+    if exact:
+        same = same and np.array_equal(r0["per_place"], sim["per_place"])
+    else:
+        same = same and np.allclose(r0["per_place"], sim["per_place"],
+                                    rtol=1e-5, atol=1e-6)
+    log(f"{tag} {label}: {r0['supersteps']} supersteps; supersteps, all "
+        f"{len(sim['stats'])} counters and per-place results "
+        f"{'equal to' if same else 'DIFFER from'} run_sim at P "
+        f"{len(r0['per_place'])}")
+    if not same:
+        fail(f"{tag} {label} differs from run_sim")
+    if want is not None and not np.array_equal(r0["result"], want):
+        fail(f"{tag} {label}: result {r0['result']}, want {want}")
+    S = r0["supersteps"]
+    wall = max(r["wall"] for r in rows)
+    host = {k: np.mean([r["host_ms"][k] for r in rows]) / S
+            for k in r0["host_ms"]}
+    measured = r0["wire_bytes"] / S
+    counted = _wire_per_superstep(kind, params, routing, len(rows))
+    log(f"{tag} {label}: {wall:.2f} s (slowest rank); host ms per "
+        f"superstep, mean over ranks: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in host.items())
+        + f"; the rest {wall * 1e3 / S - sum(host.values()):.3f}; wire "
+        f"bytes per superstep {measured:.0f} measured, {counted} from the "
+        f"code (by collective over the run, rank 0: {r0['wire']})")
+    if any(r["wire_bytes"] != counted * S for r in rows):
+        fail(f"{tag} {label}: wire bytes differ from the count")
+    return wall
+
+
+def _stage_fn(cfg):
+    """A pipeline stage of the dense family: its blocks in order, prefill
+    mode, no cache."""
+    import torch
+
+    from repro_torch.models import apply_layer
+
+    def fn(blocks, h):
+        B, S = h.shape[:2]
+        pos = torch.arange(S, dtype=torch.int32,
+                           device=h.device)[None].expand(B, S)
+        for i in range(len(blocks)):
+            h, _ = apply_layer({"blocks": blocks}, cfg, i, h, pos,
+                               mode="prefill")
+        return h
+    return fn
+
+
+def _gather_full(local, mesh, placements):
+    """A DTensor's full value from each rank's local shard, gathered mesh
+    dim by mesh dim (innermost first) through the host-staged
+    collectives."""
+    import torch
+
+    from repro_torch.dist import collectives as C
+
+    t = local
+    for i in reversed(range(len(placements))):
+        pl = placements[i]
+        if not pl.is_shard():
+            continue
+        parts = C.all_gather(t.contiguous(),
+                             mesh.get_group(mesh.mesh_dim_names[i]))
+        t = torch.cat(list(parts), dim=pl.dim)
+    return t
+
+
+def _ep_rank(device, job, out):
+    """(d): one full-width MoE layer, EP on (data x model) meshes, each
+    data shard's y, counts and drops against the plain route (``ref``:
+    the global dispatch through gmm_ref) on that shard; the global layer
+    (the gmm kernel) only timed."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.dist import collectives as C
+    from repro_torch.kernels import ops
+    from repro_torch.models.moe import moe_fwd, moe_init
+
+    cfg = dataclasses.replace(job["moe"], capacity_factor=1.25)
+    gen = torch.Generator(device=device)
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        p = moe_init(cfg, gen.manual_seed(0), device, dtype)
+        x = torch.randn(job["ep_tokens"] + (cfg.d_model,), generator=gen,
+                        device=device).to(dtype)
+        for dp, mp in job["ep_layouts"]:
+            mesh = init_device_mesh(device, (dp, mp),
+                                    mesh_dim_names=("data", "model"))
+            d = mesh.get_local_rank("data")
+            n = job["ep_tokens"][0] // dp
+            xl = x[d * n:(d + 1) * n]
+            ep = dataclasses.replace(cfg, moe_impl="ep")
+            dist.barrier()
+            _sync(device)
+            ops.reset_launches()
+            with torch.inference_mode():
+                y, aux = moe_fwd(p, xl, ep, mesh=mesh)
+            _sync(device)
+            gmm = ops.kernel_launches()["gmm"]
+            with torch.inference_mode():
+                y_ref, aux_ref = moe_fwd(p, xl, dataclasses.replace(
+                    cfg, moe_impl="ref"))
+                counts, dropped = (aux_ref["expert_counts"],
+                                   aux_ref["dropped"])
+                if dp > 1:
+                    g = mesh.get_group("data")
+                    counts, dropped = C.psum(counts, g), C.psum(dropped, g)
+                err = ((y.float() - y_ref.float()).abs().max()
+                       / y_ref.float().abs().max()).item()
+
+                def run_ep():
+                    moe_fwd(p, xl, ep, mesh=mesh)
+                    _sync(device)
+                ep_ms = _host_ms(run_ep)
+                # the global layer on the whole batch, on one rank alone
+                dist.barrier()
+                glob_ms = None
+                if dist.get_rank() == 0:
+                    def run_global():
+                        moe_fwd(p, x, dataclasses.replace(
+                            cfg, moe_impl="global"))
+                        _sync(device)
+                    glob_ms = _host_ms(run_global)
+                dist.barrier()
+            out[f"ep-{name}-{dp}x{mp}"] = dict(
+                err=err, gmm=gmm, data_rank=d,
+                counts_equal=torch.equal(counts, aux["expert_counts"]),
+                dropped=float(aux["dropped"]),
+                dropped_equal=float(dropped) == float(aux["dropped"]),
+                ep_ms=ep_ms, global_ms=glob_ms, capacity=aux_ref["capacity"])
+        del p, x
+        if device == "cuda":
+            torch.cuda.empty_cache()
+
+
+def _host_ms(fn, iters=3):
+    """Median host ms of ``fn`` (which ends in a synchronise), after one
+    warm-up call."""
+    import numpy as np
+
+    fn()
+    ts = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ts))
+
+
+def _pipe_rank(device, job, out):
+    """(e): tinyllama-1.1b at full width as a 2-stage pipeline on the
+    ranks of data row 0 of a (2, 2) (data, stage) mesh; the other row
+    waits. The outputs are held bit for bit to the sequential forward
+    of the same layers, and to it with the plain attention: within TOL
+    of its max |h| or, as ``_grad_parity`` holds bf16 past a few layers,
+    within TOL of being as close to the float32 forward (plain
+    attention) as the bf16 plain route is."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.dist import pipeline_forward, split_layers_into_stages
+    from repro_torch.kernels import ops
+    from repro_torch.models import embed_tokens, init_lm
+    from repro_torch.train.optimizer import tree_map
+
+    pipe = job["pipe"]
+    S, M = pipe["stages"], pipe["micro"]
+    mesh = init_device_mesh(device, (dist.get_world_size() // S, S),
+                            mesh_dim_names=("data", "stage"))
+    if mesh.get_local_rank("data") == 0:
+        cfg = job["dense"]
+        gen = torch.Generator(device=device)
+        with torch.inference_mode():
+            params = init_lm(cfg, gen.manual_seed(0), device)
+            tokens = torch.randint(0, cfg.vocab, (M, pipe["batch"],
+                                                  pipe["seq"]),
+                                   generator=gen, device=device)
+            x = embed_tokens(params, cfg, tokens)
+            fn = _stage_fn(cfg)
+            stages = split_layers_into_stages(params["blocks"], S)
+            pipeline_forward(fn, stages, x, mesh, "stage")     # warm-up
+            _sync(device)
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            got = pipeline_forward(fn, stages, x, mesh, "stage")
+            _sync(device)
+            wall = time.perf_counter() - t0
+            fa = ops.kernel_launches()["flash_attention"]
+            t0 = time.perf_counter()
+            want = torch.stack([fn(params["blocks"], x[m])
+                                for m in range(M)])
+            _sync(device)
+            seq = time.perf_counter() - t0
+            plain_fn = _stage_fn(dataclasses.replace(cfg, attn_impl="ref"))
+            plain = torch.stack([plain_fn(params["blocks"], x[m])
+                                 for m in range(M)])
+            f32_fn = _stage_fn(dataclasses.replace(cfg, attn_impl="ref",
+                                                   dtype="float32"))
+            blocks32 = tree_map(lambda t: t.float(), params["blocks"])
+            truth = torch.stack([f32_fn(blocks32, x[m].float())
+                                 for m in range(M)])
+            del blocks32
+        rel = lambda a, b: ((a.float() - b.float()).abs().max()
+                            / b.float().abs().max()).item()
+        out["pipeline"] = dict(
+            equal=torch.equal(got, want), finite=bool(
+                torch.isfinite(got.float()).all()),
+            max_diff=(got.float() - want.float()).abs().max().item(),
+            plain_err=rel(got, plain), far=rel(got, truth),
+            far_plain=rel(plain, truth),
+            flash_attention=fa, ms=wall * 1e3, seq_ms=seq * 1e3,
+            stage=mesh.get_local_rank("stage"), layers=cfg.n_layers)
+        del params, x
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    dist.barrier()
+
+
+def _compress_rank(device, job, out):
+    """(f): compressed_psum_mean over one full-width tinyllama layer's
+    gradient-shaped float32 leaves against the host rendering of the
+    formula, timed beside a plain float32 all-reduce of the same leaves;
+    then the 60-step regression."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist import collectives as C
+    from repro_torch.dist import compress
+    from repro_torch.ft.checkpoint import _flatten
+    from repro_torch.models import init_lm
+
+    group = dist.group.WORLD
+    n, me = C.size(group), C.rank(group)
+    shapes = {k: v.shape for k, v in _flatten(init_lm(
+        job["dense"], device="meta")["blocks"][0]).items()}
+    gen = torch.Generator(device=device)
+
+    def leaves(seed, scale):
+        gen.manual_seed(seed)
+        return {k: torch.randn(s, generator=gen, device=device) * scale
+                for k, s in shapes.items()}
+    g, e = leaves(100 + me, 1.0), leaves(200 + me, 0.01)
+    mean, err = compress.compressed_psum_mean(g, group, e)
+    worst = 0.0               # against the reference's formula, in numpy
+    gs = [leaves(100 + r, 1.0) for r in range(n)]
+    es = [leaves(200 + r, 0.01) for r in range(n)]
+    for k in shapes:
+        corr = [(gs[r][k].float() + es[r][k]).cpu().numpy()
+                for r in range(n)]
+        amax = np.float32(max(np.abs(c).max() for c in corr))
+        scale = np.float32(max(amax, np.float32(1e-30))) / np.float32(127)
+        q = [np.clip(np.round(c / scale), -127, 127).astype(np.int8)
+             for c in corr]
+        total = np.sum([qi.astype(np.int32) for qi in q], axis=0)
+        want = total.astype(np.float32) * (scale / np.float32(n))
+        want_err = corr[me] - q[me].astype(np.float32) * scale
+        worst = max(worst, float(np.abs(mean[k].cpu().numpy() - want).max()),
+                    float(np.abs(err[k].cpu().numpy() - want_err).max()))
+    del gs, es
+    elems = sum(int(np.prod(s)) for s in shapes.values())
+
+    def run_comp():
+        compress.compressed_psum_mean(g, group, e)
+        _sync(device)
+
+    def run_plain():
+        for v in g.values():
+            C.psum(v, group)
+        _sync(device)
+    dist.barrier()
+    comp_ms = _host_ms(run_comp)
+    dist.barrier()
+    plain_ms = _host_ms(run_plain)
+    C.reset_wire()
+    run_comp()
+    comp_bytes = sum(C.wire_bytes().values())
+    C.reset_wire()
+    run_plain()
+    plain_bytes = sum(C.wire_bytes().values())
+
+    # the reference's 60-step regression, one shard of X, Y per rank
+    gen.manual_seed(0)
+    W0 = torch.randn((16, 16), generator=gen, device=device) * 0.3
+    X = torch.randn((32, 16), generator=gen, device=device)
+    Y = X @ (torch.randn((16, 16), generator=gen, device=device) * 0.5)
+    rows = X.shape[0] // n
+    Xl, Yl = X[me * rows:(me + 1) * rows], Y[me * rows:(me + 1) * rows]
+    finals = {}
+    for comp in (False, True):
+        w = W0.clone()
+        ef = compress.init_error({"w": torch.zeros_like(W0)})
+        for _ in range(job["compress_steps"]):
+            wg = w.clone().requires_grad_(True)
+            (gw,) = torch.autograd.grad(torch.mean((Xl @ wg - Yl) ** 2), wg)
+            if comp:
+                gsum, ef = compress.compressed_psum_mean({"w": gw}, group,
+                                                         ef)
+                gw = gsum["w"]
+            else:
+                gw = C.pmean(gw, group)
+            w = w - 0.05 * gw
+        finals[comp] = w
+    loss = lambda w: torch.mean((X @ w - Y) ** 2).item()
+    rel = ((finals[True] - finals[False]).abs().max()
+           / finals[False].abs().max().clamp(min=1e-9)).item()
+    out["compress"] = dict(
+        worst=worst, elems=elems, comp_ms=comp_ms, plain_ms=plain_ms,
+        comp_bytes=comp_bytes, plain_bytes=plain_bytes,
+        loss_exact=loss(finals[False]), loss_comp=loss(finals[True]),
+        w_rel=rel)
+
+
+def _at(tree, key):
+    """The node of nested dicts and lists at a '/'-joined path, as
+    ``ft.checkpoint._flatten`` names a leaf (a spec tree's leaves are
+    tuples, which that function would walk into)."""
+    for part in key.split("/"):
+        tree = tree[int(part)] if isinstance(tree, list) else tree[part]
+    return tree
+
+
+def _shard_rank(device, job, out):
+    """(g): tinyllama-1.1b's parameters placed by tree_shardings on a
+    (2 data x 2 model) mesh: each local shard's shape against the spec,
+    and the host-staged reassembly bit for bit."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.dist import param_axes, tree_shardings, tree_specs
+    from repro_torch.dist.sharding import mesh_shape
+    from repro_torch.ft.checkpoint import _flatten
+    from repro_torch.models import init_lm
+
+    cfg = job["dense"]
+    mesh = init_device_mesh(device, (2, 2), mesh_dim_names=("data", "model"))
+    sizes = mesh_shape(mesh)
+    params = init_lm(cfg, torch.Generator(device=device).manual_seed(0),
+                     device)
+    axes = param_axes(cfg)
+    flat_p = _flatten(params)
+    specs = tree_specs(axes, params, mesh)
+    shardings = tree_shardings(axes, params, mesh)
+    bad, sharded, local_bytes = [], 0, 0
+    for k, t in flat_p.items():
+        sh, spec = _at(shardings, k), _at(specs, k)
+        d = distribute_tensor(t, sh.mesh, list(sh.placements),
+                              src_data_rank=None)
+        local = d.to_local()
+        want = []
+        for size, e in zip(t.shape, spec):
+            for a in (() if e is None else (e,) if isinstance(e, str)
+                      else e):
+                size //= sizes[a]
+            want.append(size)
+        sharded += any(e is not None for e in spec)
+        local_bytes += local.numel() * local.element_size()
+        full = _gather_full(local, mesh, sh.placements)
+        if tuple(local.shape) != tuple(want) or not torch.equal(full, t):
+            bad.append(k)
+    out["shard"] = dict(leaves=len(flat_p), sharded=sharded, bad=bad,
+                        local_bytes=local_bytes,
+                        full_bytes=sum(t.numel() * t.element_size()
+                                       for t in flat_p.values()))
+
+
+def _dist_models_rank(device, job):
+    """(d) to (g) on one world of EP_WORLD ranks; ``job`` holds what they
+    run (a spawned rank imports this file afresh, so nothing reaches it
+    through the module's constants): the two model configs (``moe``,
+    ``dense``), the EP batch and layouts, the pipeline's shape and the
+    regression's steps."""
+    out = {}
+    for part in (_ep_rank, _pipe_rank, _compress_rank, _shard_rank):
+        part(device, job, out)
+    return out
+
+
+def _production_specs():
+    """(g): param_axes / spec_for of all ten archs at full width on the
+    production meshes' shapes; every sharded dim must divide."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.dist import param_axes, tree_specs
+    from repro_torch.dist.sharding import mesh_shape
+    from repro_torch.ft.checkpoint import _flatten
+    from repro_torch.models import init_lm
+
+    class Shape:
+        def __init__(self, shape):
+            self.shape = shape
+
+    meshes = {"pod 16x16": Shape({"data": 16, "model": 16}),
+              "multipod 2x16x16": Shape({"pod": 2, "data": 16,
+                                         "model": 16})}
+    for arch in sorted(ARCHS):
+        cfg = ARCHS[arch]
+        pshapes = init_lm(cfg, device="meta")
+        axes = param_axes(cfg, pshapes)
+        shp = _flatten(pshapes)
+        for name, mesh in meshes.items():
+            specs = tree_specs(axes, pshapes, mesh)
+            sizes = mesh_shape(mesh)
+            n_sharded = 0
+            for k, leaf in shp.items():
+                spec = _at(specs, k)
+                for dim, e in zip(leaf.shape, spec):
+                    prod = 1
+                    for a in (() if e is None else (e,) if isinstance(
+                            e, str) else e):
+                        prod *= sizes[a]
+                    if dim % prod:
+                        fail(f"[dist host x1] {arch} {k}: dim {dim} does not "
+                             f"divide by {spec}")
+                n_sharded += any(e is not None for e in spec)
+            log(f"[dist host x1] sharding {arch} full width on {name}: "
+                f"{len(shp)} leaves, {n_sharded} sharded, every sharded "
+                f"dim divides")
+
+
+def phase_dist(smi, sizes="whole"):
+    """Phase 9: the GLB executor with one place per process (UTS, fib,
+    BC), expert-parallel MoE, the pipeline, the compressed all-reduce and
+    the sharding rule engine, on ranks sharing the card; (a) to (c) at
+    ``DIST_SIZES[sizes]``. Returns the kernels' launches over the ranks'
+    main-path runs."""
+    import numpy as np
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.ranks import run_ranks
+    from repro_torch.problems import fib, rmat, uts
+
+    t_phase = time.time()
+    tree, fib_kw, nccl_tree = (DIST_SIZES[sizes][k]
+                               for k in ("uts", "fib", "nccl"))
+    launches = dict.fromkeys(DIST_KERNELS, 0)
+    staged = f"(ranks on one {DEVICE} device, collectives staged through " \
+             f"host memory)"
+
+    # (a) + (b): references first (host, then run_sim on the card)
+    t0 = time.time()
+    want_uts = uts.uts_count_bfs(**tree)
+    adj = rmat.rmat_graph(**DIST_BC)[0]
+    oracle = rmat.brandes_bc_oracle(adj)
+    log(f"[dist host x1] UTS {tree}: {want_uts} nodes by the "
+        f"breadth-first "
+        f"count; BC oracle on R-MAT {DIST_BC}; {time.time() - t0:.1f} s")
+    sims = {"uts": _sim("UTS", "uts", tree, UTS_PARAMS, DIST_WORLD),
+            "fib": _sim("fib", "fib", fib_kw, DIST_FIB_PARAMS,
+                        DIST_WORLD),
+            "bc": _sim("BC", "bc", DIST_BC, DIST_BC_PARAMS, DIST_WORLD)}
+    cases = [("uts-dense", "uts", tree, UTS_PARAMS, "dense"),
+             ("uts-lifeline", "uts", tree, UTS_PARAMS, "lifeline"),
+             ("fib-lifeline", "fib", fib_kw, DIST_FIB_PARAMS, "lifeline"),
+             ("bc-dense", "bc", DIST_BC, DIST_BC_PARAMS, "dense")]
+    t0 = time.time()
+    ranks = run_ranks(_dist_glb_rank, DIST_WORLD, DEVICE, cases,
+                      backend="gloo", timeout=900)
+    log(f"[dist gloo x{DIST_WORLD}] GLB world {staged}: "
+        f"{time.time() - t0:.1f} s with start-up")
+    for i, case in enumerate(cases):
+        rows = [r[i] for r in ranks]
+        tag = f"[dist {rows[0]['backend']} x{DIST_WORLD}]"
+        kind = case[1]
+        if kind == "uts":
+            wall = _dist_check(tag, case, rows, sims["uts"], True, want_uts)
+            per_rank = [r["launches"]["uts_expand"] for r in rows]
+            log(f"{tag} {case[0]}: {want_uts} nodes = uts_count_bfs; "
+                f"{want_uts / wall:.0f} nodes/s; uts_expand launches per "
+                f"rank {per_rank}")
+            if min(per_rank) <= 0:
+                fail(f"{tag} {case[0]}: a rank never launched uts_expand")
+            launches["uts_expand"] += sum(per_rank)
+        elif kind == "fib":
+            _dist_check(tag, case, rows, sims["fib"], True,
+                        fib.fib_oracle(fib_kw["n"]))
+            log(f"{tag} fib({fib_kw['n']}) = {int(rows[0]['result'])} "
+                f"(oracle {fib.fib_oracle(fib_kw['n'])})")
+        else:
+            _dist_check(tag, case, rows, sims["bc"], False)
+            got = rows[0]["result"]
+            ok = (np.allclose(got, oracle, rtol=1e-4, atol=1e-3)
+                  and np.allclose(got, sims["bc"]["result"], rtol=1e-5,
+                                  atol=1e-6) and np.isfinite(got).all())
+            log(f"{tag} BC: {'equals' if ok else 'DIFFERS from'} "
+                f"brandes_bc_oracle (rtol 1e-4, atol 1e-3) and run_sim's "
+                f"result (rtol 1e-5)")
+            if not ok:
+                fail(f"{tag} BC disagrees with its oracle or run_sim")
+
+    # (c) UTS on NCCL at world size 1: the NCCL code path's only run here
+    backend = "nccl" if DEVICE == "cuda" else "gloo"
+    case = ("uts-dense", "uts", nccl_tree, UTS_PARAMS, "dense")
+    sim1 = _sim(f"UTS depth {nccl_tree['depth']}", "uts", nccl_tree,
+                UTS_PARAMS, 1)
+    rows = [r[0] for r in run_ranks(_dist_glb_rank, 1, DEVICE, [case],
+                                    backend=backend, timeout=600)]
+    tag = f"[dist {rows[0]['backend']} x1]"
+    _dist_check(tag, case, rows, sim1, True,
+                uts.uts_count_bfs(**nccl_tree))
+    launches["uts_expand"] += rows[0]["launches"]["uts_expand"]
+
+    # (d) to (g) on one world of 4 ranks
+    _production_specs()
+    d_model = ARCHS[MOE].d_model
+    t0 = time.time()
+    job = {"moe": ARCHS[MOE], "dense": ARCHS[PIPE["arch"]],
+           "ep_tokens": EP_TOKENS, "ep_layouts": EP_LAYOUTS, "pipe": PIPE,
+           "compress_steps": COMPRESS_STEPS}
+    ranks = run_ranks(_dist_models_rank, EP_WORLD, DEVICE, job,
+                      backend="gloo", timeout=900)
+    tag = f"[dist gloo x{EP_WORLD}]"
+    log(f"{tag} model world {staged}: {time.time() - t0:.1f} s with "
+        f"start-up")
+    for key in ranks[0]:
+        if not key.startswith("ep-"):
+            continue
+        rows = [r[key] for r in ranks]
+        dtype = key.split("-")[1]
+        worst = max(r["err"] for r in rows)
+        gmm = [r["gmm"] for r in rows]
+        ok = (worst <= TOL[dtype] and all(r["counts_equal"]
+                                          and r["dropped_equal"]
+                                          for r in rows) and min(gmm) > 0)
+        log(f"{tag} EP {MOE} layer {key[3:]} (data x model), x "
+            f"{EP_TOKENS + (d_model,)}, capacity {rows[0]['capacity']} a "
+            f"shard: max |y - plain (gmm_ref) route on the shard| / max "
+            f"|y| {worst:.3e} (TOL "
+            f"{TOL[dtype]}), expert_counts and dropped ({rows[0]['dropped']:.0f}) "
+            f"{'equal' if all(r['counts_equal'] and r['dropped_equal'] for r in rows) else 'DIFFER'}; "
+            f"gmm launches per rank {gmm}; EP layer {rows[0]['ep_ms']:.2f} "
+            f"ms (host clock, rank 0), the global layer on the whole batch "
+            f"on one rank {rows[0]['global_ms']:.2f} ms")
+        if not ok:
+            fail(f"{tag} EP {key} failed")
+        launches["gmm"] += sum(gmm)
+    pipes = [r["pipeline"] for r in ranks if "pipeline" in r]
+    S, M = PIPE["stages"], PIPE["micro"]
+    for p in pipes:
+        log(f"{tag} pipeline {PIPE['arch']} ({p['layers']} layers as {S} "
+            f"stages), stage {p['stage']}: {M} microbatches of "
+            f"({PIPE['batch']}, {PIPE['seq']}) tokens, bf16: "
+            f"{'bit for bit equal to' if p['equal'] else 'DIFFERS from'} "
+            f"the sequential forward (max diff {p['max_diff']:.3e}); "
+            f"{p['plain_err']:.3e} of max |h| from it with the plain "
+            f"attention (TOL {TOL['bfloat16']}), from the float32 forward "
+            f"{p['far']:.3e} against the plain route's {p['far_plain']:.3e}"
+            f" (plus TOL); "
+            f"{p['ms'] / M:.2f} ms per microbatch ({p['ms']:.2f} ms in "
+            f"all; sequential on one rank {p['seq_ms'] / M:.2f}); bubble "
+            f"share of the schedule (S - 1) / (M + S - 1) = "
+            f"{(S - 1) / (M + S - 1):.3f}; flash_attention launches "
+            f"{p['flash_attention']}")
+        near = (p["plain_err"] <= TOL["bfloat16"]
+                or p["far"] <= p["far_plain"] + TOL["bfloat16"])
+        if not (p["equal"] and p["finite"] and p["flash_attention"] > 0
+                and near):
+            fail(f"{tag} pipeline stage {p['stage']} failed")
+        launches["flash_attention"] += p["flash_attention"]
+    if len(pipes) != S:
+        fail(f"{tag} pipeline: {len(pipes)} stages reported, want {S}")
+    c = ranks[0]["compress"]
+    worst = max(r["compress"]["worst"] for r in ranks)
+    log(f"{tag} compressed_psum_mean over one {PIPE['arch']} layer's "
+        f"gradient-shaped float32 leaves ({c['elems']} elements): max "
+        f"|out - host rendering of the formula| {worst:.3e} (limit 1e-7); "
+        f"{c['comp_ms']:.2f} ms against {c['plain_ms']:.2f} ms for a plain "
+        f"float32 all_reduce of the same leaves (both through gloo); wire "
+        f"bytes {c['comp_bytes']} against {c['plain_bytes']} (int32 codes: "
+        f"float32's bytes); {COMPRESS_STEPS}-step regression: loss "
+        f"{c['loss_comp']:.6f} compressed, {c['loss_exact']:.6f} exact, "
+        f"w_rel {c['w_rel']:.4f}")
+    if not (worst <= 1e-7 and c["loss_comp"] < c["loss_exact"] * 1.5 + 1e-3
+            and c["w_rel"] < 0.05):
+        fail(f"{tag} compressed_psum_mean failed its checks")
+    for r in ranks:
+        s = r["shard"]
+        if s["bad"]:
+            fail(f"{tag} sharding: leaves {s['bad'][:4]} wrong")
+    s = ranks[0]["shard"]
+    log(f"{tag} {PIPE['arch']} on a (2 data x 2 model) mesh: "
+        f"{s['leaves']} leaves, {s['sharded']} sharded; every rank's local "
+        f"shards as the specs give them ({s['local_bytes']} of "
+        f"{s['full_bytes']} bytes on rank 0), reassembled through host "
+        f"memory bit for bit")
+    log(f"[dist] phase 9 in {time.time() - t_phase:.1f} s; launches over "
+        f"the ranks' runs {launches}")
+    return launches
+
+
 # --------------------------------------------------------------- main
 def main() -> int:
+    ap = argparse.ArgumentParser(description="Smoke test of the PyTorch/"
+                                 "CUDA port on one GPU (see the module "
+                                 "docstring).")
+    ap.add_argument("--phase", choices=("dist",),
+                    help="run phases 1, 2 and this one alone, at its uncut "
+                    "sizes, and print no result lines")
+    opts = ap.parse_args()
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke FAILED: src/repro_torch not found beside "
               "chip_smoke.py", file=sys.stderr)
@@ -3261,6 +4034,11 @@ def main() -> int:
 
     smi = timed(phase_device)
     timed(phase_build)
+    if opts.phase == "dist":
+        timed(phase_dist, smi, "alone")
+        log(f"[time] all phases: {time.time() - t_start:.1f} s")
+        log(f"[summary] card: {smi}")
+        return 0
     rows = timed(phase_kernels)
     moe_launches = timed(phase_moe)
     params, totals, steps = timed(phase_serve)
@@ -3274,32 +4052,38 @@ def main() -> int:
     del params, mamba
     torch.cuda.empty_cache()
     trained = timed(phase_train, smi)
+    dist = timed(phase_dist, smi)
     log(f"[time] all phases: {time.time() - t_start:.1f} s")
     all_steps = sum(steps.values())
     for name in ATTENTION:
         mig = mig_launches.get(name, 0)
         train = trained.get(name, 0)
+        piped = dist.get(name, 0)
         rows[name]["launches"] = (totals[name] + moe_launches[name] + mig
-                                  + zoo_launches[name] + train)
+                                  + zoo_launches[name] + train + piped)
         log(f"[summary] {name}: {rows[name]['launches']} launches: "
             f"{totals[name]} over {all_steps} engine steps of the "
             f"tinyllama-1.1b runs ({totals[name] / all_steps:.2f} per "
             f"step), {moe_launches[name]} over the {MOE} runs, {mig} "
             f"over the migrate phase's three runs, {zoo_launches[name]} "
-            f"over the zoo phase's runs, {train} over the training runs")
-    rows["gmm"]["launches"] = moe_launches["gmm"] + trained["gmm"]
+            f"over the zoo phase's runs, {train} over the training runs, "
+            f"{piped} over the dist phase's pipeline ranks")
+    rows["gmm"]["launches"] = (moe_launches["gmm"] + trained["gmm"]
+                               + dist["gmm"])
     log(f"[summary] gmm: {rows['gmm']['launches']} launches: "
         f"{moe_launches['gmm']} over the three {MOE} runs, "
-        f"{trained['gmm']} over the training runs")
+        f"{trained['gmm']} over the training runs, {dist['gmm']} over the "
+        f"dist phase's expert-parallel ranks")
     rows["ssd_chunked"]["launches"] = (ssd_launches + zoo_launches[
         "ssd_chunked"] + trained["ssd_chunked"])
     log(f"[summary] ssd_chunked: {rows['ssd_chunked']['launches']} "
         f"launches: {ssd_launches} in the mamba2-130m fabric run, "
         f"{zoo_launches['ssd_chunked']} in the zamba2-7b runs, "
         f"{trained['ssd_chunked']} over the training runs")
-    rows["uts_expand"]["launches"] = uts_launches
-    log(f"[summary] uts_expand: {uts_launches} launches in the UTS run on "
-        f"{UTS_P} places")
+    rows["uts_expand"]["launches"] = uts_launches + dist["uts_expand"]
+    log(f"[summary] uts_expand: {rows['uts_expand']['launches']} launches: "
+        f"{uts_launches} in the UTS run on {UTS_P} places, "
+        f"{dist['uts_expand']} over the dist phase's UTS ranks")
     log(f"[summary] card: {smi}")
     print(json.dumps({"kernels": [rows[n] for n in REPLACES]}))
     print(json.dumps({"ok": True, "device": {

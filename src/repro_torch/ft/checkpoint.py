@@ -10,7 +10,10 @@ per step), so that either package reads what the other wrote::
   that the card keeps stepping; it writes ``step_*.tmp`` first and renames
   it, so a crash mid-write leaves no half checkpoint behind.
 - ``restore`` returns the tree of numpy arrays; the caller places them
-  (the training CLI converts its layout with ``weights.params_from_jax``).
+  (the training CLI converts its layout with ``weights.params_from_jax``),
+  or, given ``shardings`` (``dist.sharding.tree_shardings``), each leaf
+  comes back as a ``DTensor`` on its mesh and placements, so that a
+  restore under another mesh than the save's gives the same values.
 - A ``keep`` window garbage-collects old steps.
 """
 from __future__ import annotations
@@ -105,9 +108,24 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def restore(ckpt_dir: str, step: Optional[int] = None):
+def _distribute(v: np.ndarray, sharding):
+    """The array ``v``, which every rank read in full, as a DTensor: each
+    rank keeps its own chunk, so no rank sends anything."""
+    from torch.distributed.tensor import distribute_tensor
+
+    t = torch.from_numpy(np.ascontiguousarray(v)).to(
+        sharding.mesh.device_type)
+    return distribute_tensor(t, sharding.mesh, list(sharding.placements),
+                             src_data_rank=None)
+
+
+def restore(ckpt_dir: str, step: Optional[int] = None,
+            shardings: Any = None):
     """Load a checkpoint (the latest when ``step`` is None). Returns
-    (tree of numpy arrays, manifest extra, step)."""
+    (tree, manifest extra, step): numpy arrays, or with ``shardings`` (a
+    tree of ``LeafSharding`` over some or all keys) those leaves as
+    DTensors placed by ``distribute_tensor``; every rank of their meshes
+    calls this."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -118,4 +136,8 @@ def restore(ckpt_dir: str, step: Optional[int] = None):
     flat = {k: np.load(os.path.join(d, "arrays",
                                     k.replace("/", "__") + ".npy"))
             for k in manifest["keys"]}
+    if shardings is not None:
+        flat_sh = _flatten(shardings)
+        flat = {k: _distribute(v, flat_sh[k]) if k in flat_sh else v
+                for k, v in flat.items()}
     return _unflatten(flat), manifest.get("extra", {}), step

@@ -73,7 +73,10 @@ def test_importing_every_module_loads_no_jax():
               "repro_torch.kernels.autograd",
               "repro_torch.train.optimizer", "repro_torch.train.trainer",
               "repro_torch.data.pipeline", "repro_torch.ft.checkpoint",
-              "repro_torch.launch.train"):
+              "repro_torch.launch.train", "repro_torch.launch.mesh",
+              "repro_torch.launch.ranks", "repro_torch.core.executor",
+              "repro_torch.dist.collectives", "repro_torch.dist.sharding",
+              "repro_torch.dist.compress", "repro_torch.dist.pipeline"):
         assert m in mods, m
     assert len(mods) > 20
     code = (
@@ -122,6 +125,10 @@ def test_cuda_requested_without_cuda_raises(monkeypatch):
     from repro_torch.serve import Engine, GLBReplicaBalancer
     from repro_torch.weights import params_from_jax
 
+    class Mesh:                       # shape and names, as a DeviceMesh
+        shape = (2,)
+        mesh_dim_names = ("place",)
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = ARCHS["tinyllama-1.1b"].smoke()
     params = init_lm(cfg, device="cpu")
@@ -151,6 +158,8 @@ def test_cuda_requested_without_cuda_raises(monkeypatch):
                  lambda: run_sim(fib_problem(8), 2),        # default: cuda
                  lambda: run_sim(fib_problem(8), 2, device="cuda"),
                  lambda: GLB(fib_problem(8), P=2).run(),
+                 lambda: GLB(fib_problem(8), mesh=Mesh(),
+                             mode="shard_map").run(),     # default: cuda
                  lambda: init_train_state(cfg),             # default: cuda
                  lambda: train(["--arch", "tinyllama-1.1b", "--steps",
                                 "1"]),                      # default: cuda

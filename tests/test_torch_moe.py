@@ -168,8 +168,8 @@ def test_capacity_rounds_half_to_even_as_jax(T):
 
 
 def test_moe_impls():
-    """``ref`` (the plain gmm) computes what ``auto`` does; ``ep`` is not
-    ported and raises; an unknown impl raises."""
+    """``ref`` (the plain gmm) computes what ``auto`` does; ``ep`` without
+    a mesh raises (JAX's ValueError); an unknown impl raises."""
     arch, kw = CASES["moonshot-64x6"]
     cfg, tcfg, _, tp = _layer(arch, 1.25, **kw)
     x = torch.from_numpy(np.random.default_rng(4).standard_normal(
@@ -179,7 +179,7 @@ def test_moe_impls():
         y2, aux2 = moe_fwd(tp, x, dataclasses.replace(tcfg, moe_impl=impl))
         assert torch.equal(y, y2) and float(aux2["dropped"]) == float(
             aux["dropped"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         moe_fwd(tp, x, dataclasses.replace(tcfg, moe_impl="ep"))
     with pytest.raises(ValueError, match="unknown moe_impl"):
         moe_fwd(tp, x, dataclasses.replace(tcfg, moe_impl="einsum"))

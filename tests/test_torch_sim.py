@@ -227,7 +227,7 @@ def test_default_candidates_seed_and_errors():
     assert all(int(r.result) == uts.uts_oracle(depth=5) for r in runs)
     assert runs[0].supersteps == runs[2].supersteps
     assert set(runs[0].host_ms) == {"process", "match", "transfer"}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         core.GLB(prob, mode="shard_map")
     with pytest.raises(ValueError, match="needs P"):
         core.GLB(prob)
