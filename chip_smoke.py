@@ -196,6 +196,27 @@ Phases, in order; any failure exits non-zero:
                production meshes' shapes, and tinyllama's parameters on
                a (2 x 2) mesh: local shard shapes as specified, the
                host-staged reassembly bit for bit.
+  10. dryrun — the dry run (repro_torch.launch.dryrun), its peaks from
+               repro_torch.analysis.roofline. (a) On this machine's CPU,
+               in this process: tinyllama-1.1b/train_4k on the 16x16
+               mesh and uts_glb, over a fake world of 256 ranks; both
+               must read status ok with every record key; their roofline
+               rows are printed (reckoned from data-sheet peaks, not
+               measured). (b) Phase 8's training cell (tinyllama-1.1b at
+               full width, 8 x 512, bf16 on float32 masters, remat full)
+               dry-run on a world of one, then made on the card: the
+               record's argument_size_in_bytes must equal the bytes of
+               init_train_state's tensors and the batch, and
+               memory_allocated must grow by exactly those bytes in the
+               caching allocator's 512-byte blocks; two training steps
+               (flash_attention launched 2 x 2 x 22 times), the second
+               timed by CUDA events, printed beside the predicted peak
+               (arguments + traced temp) against max_memory_allocated and
+               t_compute / t_memory against the step, with model_flops /
+               (ms x 989e12). (c) attention_chunked against attention_ref
+               at that cell's attention shape (8, 512, 32/4 heads of 64),
+               bf16 and f32, values and the gradients of q, k and v within
+               TOL of max(1, max |ref|).
 The last two lines of standard output are one JSON object with each
 kernel's numbers and the contract line {"ok": true, "device": {...}}.
 """
@@ -212,15 +233,15 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
-
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, and dense
-# FLOP/s by type (bf16 on the tensor cores, f32 outside them). The sheet
-# gives no int32 rate; int32 counts one operation per CUDA-core lane per
-# clock, 132 SMs x 128 lanes x 1.98 GHz: the rate behind the f32 figure,
-# which counts an FMA as two. No int32 instruction issues faster, so the
-# bound it gives is a least time.
-PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int32": 33.5e12}
+if os.path.isdir(os.path.join(SRC, "repro_torch")):
+    sys.path.insert(0, SRC)
+    # H100 SXM published peaks (NVIDIA data sheet), kept in one place:
+    # HBM3 bytes/s, and dense FLOP/s by type (bf16 on the tensor cores, f32
+    # outside them; int32 one operation per CUDA-core lane per clock, so
+    # the bound it gives is a least time).
+    from repro_torch.analysis.roofline import HBM_BW as PEAK_BYTES
+    from repro_torch.analysis.roofline import \
+        PEAK_FLOPS_BY_DTYPE as PEAK_FLOPS
 # Kernel vs plain version on the same inputs: bf16 outputs are rounded
 # once from f32 accumulators in both, so they differ by at most ~1 bf16
 # ulp of |o| <= 2 (2^-7); f32 differs only in summation order.
@@ -4005,6 +4026,172 @@ def phase_dist(smi, sizes="whole"):
     return launches
 
 
+# ----------------------------------------------------------- phase 10
+# The dry run (repro_torch.launch.dryrun) on this machine's CPU, then its
+# prediction of phase 8's one-card training cell held to the card.
+DRY_CELLS = (("tinyllama-1.1b", "train_4k"), ("uts_glb", "glb"))
+DRY_KEYS = ("status", "chips", "mesh", "trace_s", "memory_analysis",
+            "collective_bytes", "collective_basis", "cost", "model_flops",
+            "roofline", "device", "peaks")
+DRY_MEMORY = ("argument_size_in_bytes", "output_size_in_bytes",
+              "alias_size_in_bytes", "temp_size_in_bytes", "temp_basis")
+DRY_TRAIN = dict(arch="tinyllama-1.1b", batch=8, seq=512)   # phase 8 (a)
+ALLOC_ROUND = 512    # the CUDA caching allocator's block granularity
+
+
+def _alloc_bytes(n: int) -> int:
+    """What the caching allocator books for an n-byte tensor."""
+    return -(-n // ALLOC_ROUND) * ALLOC_ROUND if n else 0
+
+
+def phase_dryrun(smi):
+    """Phase 10: (a) the dry run of tinyllama-1.1b/train_4k on the 16x16
+    fake mesh and of uts_glb, in this process on the CPU; (b) the dry run
+    of phase 8's training cell on a world of one, held to the card:
+    argument bytes exactly, peak and step time beside the measured ones;
+    (c) attention_chunked at that cell's attention shape against
+    attention_ref, values and gradients. Returns the kernels' launches
+    over (b)'s measured steps."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.analysis import report
+    from repro_torch.analysis import roofline as RL
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (attention_chunked,
+                                                     attention_ref)
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.train.optimizer import OptConfig, tree_leaves
+    from repro_torch.train.trainer import init_train_state, make_train_step
+
+    t_phase = time.time()
+    tag = "[dryrun]"
+    out_dir = os.path.join(ROOT, "build", "dryrun")
+    # (a) the CLI's cells, as run_cell writes them
+    recs = []
+    try:
+        for arch, shape in DRY_CELLS:
+            rec = DR.run_cell(arch, shape, False, out_dir)
+            if rec["status"] != "ok":
+                fail(f"dryrun {arch}/{shape}: {rec['status']} "
+                     f"{rec.get('error', '')}\n{rec.get('trace', '')}")
+            missing = [k for k in DRY_KEYS if k not in rec] + [
+                k for k in DRY_MEMORY if k not in rec["memory_analysis"]]
+            if missing:
+                fail(f"dryrun {arch}/{shape}: record lacks {missing}")
+            recs.append(rec)
+    finally:
+        DR.close_world()
+    for line in report.roofline_table(recs).splitlines():
+        log(f"{tag} (a) {line}")
+    for r in recs:
+        log(f"{tag} (a) {r['arch']}/{r['shape']} on {r['chips']} ranks "
+            f"({r['device']} trace {r['trace_s']} s, collectives "
+            f"{r['collective_basis']}): {r['memory_analysis']}, "
+            f"collectives {r['collective_bytes']}; reckoned from data-sheet "
+            f"peaks, not measured")
+
+    # (b) phase 8's cell on a world of one, then on the card
+    cfg = ARCHS[DRY_TRAIN["arch"]]
+    B, S = DRY_TRAIN["batch"], DRY_TRAIN["seq"]
+    shape = ShapeConfig(f"train_{B}x{S}", S, B, "train")
+    try:
+        DR.fake_world(1)
+        mesh = init_device_mesh("cpu", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        tr = DR.trace_lm(DR._cell_cfg(cfg, shape), shape)
+        rec = DR.lm_record(tr, mesh)
+    finally:
+        DR.close_world()
+    mem = rec["memory_analysis"]
+    args_b, temp_b = mem["argument_size_in_bytes"], mem["temp_size_in_bytes"]
+    roof = rec["roofline"]
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    params, opt = init_train_state(cfg, gen, device=DEVICE)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                                     dtype=torch.int32, device=DEVICE)}
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - base
+    leaves = tree_leaves(params) + tree_leaves(opt) + [batch["tokens"]]
+    exact = sum(t.numel() * t.element_size() for t in leaves)
+    booked = sum(_alloc_bytes(t.numel() * t.element_size()) for t in leaves)
+    log(f"{tag} (b) {cfg.name} {B} x {S}, {cfg.dtype} on float32 masters, "
+        f"remat {cfg.remat!r}: argument_size_in_bytes {args_b} (the dry "
+        f"run's, world of 1); the {len(leaves)} tensors hold {exact} bytes, "
+        f"which the caching allocator books as {booked} ({ALLOC_ROUND}-byte "
+        f"blocks); memory_allocated grew by {grown}")
+    if args_b != exact or grown != booked:
+        fail(f"dryrun (b): argument bytes {args_b}, tensors {exact}, "
+             f"allocator {booked}, grown {grown}: not equal")
+    step = make_train_step(cfg, OptConfig())
+    ops.reset_launches()
+    params, opt, _ = step(params, opt, batch)       # warm: workspaces
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    params, opt, metrics = step(params, opt, batch)
+    end.record()
+    torch.cuda.synchronize()
+    launches = ops.kernel_launches()
+    ms = start.elapsed_time(end)
+    peak = torch.cuda.max_memory_allocated() - base
+    rounds = 2 if cfg.remat != "none" else 1
+    if launches["flash_attention"] != 2 * rounds * cfg.n_layers:
+        fail(f"dryrun (b): flash_attention launched "
+             f"{launches['flash_attention']} times over two steps, want "
+             f"{2 * rounds * cfg.n_layers}")
+    if not math.isfinite(float(metrics["loss"])):
+        fail(f"dryrun (b): loss {metrics['loss']}")
+    pred_peak = args_b + temp_b
+    mfu = rec["model_flops"] / (ms * 1e-3 * RL.PEAK_FLOPS)
+    log(f"{tag} (b) predicted peak (arguments + traced temp) "
+        f"{pred_peak / 2**30:.2f} GiB vs max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB (ratio {peak / pred_peak:.3f}); "
+        f"t_compute {roof['t_compute_s'] * 1e3:.2f} ms, t_memory "
+        f"{roof['t_memory_s'] * 1e3:.2f} ms (reckoned) vs the measured "
+        f"step {ms:.2f} ms (CUDA events, flash_attention route); "
+        f"model_flops / (ms x {RL.PEAK_FLOPS:g}) = {mfu:.4f}; useful "
+        f"ratio {roof['useful_ratio']}; {smi}")
+    del params, opt, batch, metrics
+    torch.cuda.empty_cache()
+
+    # (c) attention_chunked at the cell's attention shape
+    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    g = torch.Generator(device=DEVICE).manual_seed(1)
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt).split(".")[-1]
+        mk = lambda *s: torch.randn(*s, generator=g, device=DEVICE).to(dt)
+        q, k, v = mk(B, S, Hq, D), mk(B, S, Hkv, D), mk(B, S, Hkv, D)
+        ct = mk(B, S, Hq, D)
+        errs = []
+        outs = []
+        for fn in (attention_chunked, attention_ref):
+            xs = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            o = fn(*xs, causal=True)
+            grads = torch.autograd.grad((o.float() * ct.float()).sum(), xs)
+            outs.append([o.detach()] + list(grads))
+        for got, want in zip(*outs):
+            scale = max(1.0, want.float().abs().max().item())
+            errs.append((got.float() - want.float()).abs().max().item()
+                        / scale)
+        log(f"{tag} (c) attention_chunked vs attention_ref, {name}, "
+            f"({B}, {S}, {Hq}/{Hkv} heads, {D}), causal: max |err| / "
+            f"max(1, max |ref|) of o, dq, dk, dv = "
+            f"{', '.join(f'{e:.2e}' for e in errs)} (TOL {TOL[name]})")
+        if max(errs) > TOL[name]:
+            fail(f"dryrun (c): attention_chunked {name} off by {errs}")
+    log(f"{tag} phase 10 in {time.time() - t_phase:.1f} s")
+    return {"flash_attention": launches["flash_attention"]}
+
+
 # --------------------------------------------------------------- main
 def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke test of the PyTorch/"
@@ -4018,7 +4205,6 @@ def main() -> int:
         print("chip_smoke FAILED: src/repro_torch not found beside "
               "chip_smoke.py", file=sys.stderr)
         return 2
-    sys.path.insert(0, SRC)
     import torch
 
     if not torch.cuda.is_available():
@@ -4053,21 +4239,25 @@ def main() -> int:
     torch.cuda.empty_cache()
     trained = timed(phase_train, smi)
     dist = timed(phase_dist, smi)
+    dry = timed(phase_dryrun, smi)
     log(f"[time] all phases: {time.time() - t_start:.1f} s")
     all_steps = sum(steps.values())
     for name in ATTENTION:
         mig = mig_launches.get(name, 0)
         train = trained.get(name, 0)
         piped = dist.get(name, 0)
+        dried = dry.get(name, 0)
         rows[name]["launches"] = (totals[name] + moe_launches[name] + mig
-                                  + zoo_launches[name] + train + piped)
+                                  + zoo_launches[name] + train + piped
+                                  + dried)
         log(f"[summary] {name}: {rows[name]['launches']} launches: "
             f"{totals[name]} over {all_steps} engine steps of the "
             f"tinyllama-1.1b runs ({totals[name] / all_steps:.2f} per "
             f"step), {moe_launches[name]} over the {MOE} runs, {mig} "
             f"over the migrate phase's three runs, {zoo_launches[name]} "
             f"over the zoo phase's runs, {train} over the training runs, "
-            f"{piped} over the dist phase's pipeline ranks")
+            f"{piped} over the dist phase's pipeline ranks, {dried} over "
+            f"the dryrun phase's measured training steps")
     rows["gmm"]["launches"] = (moe_launches["gmm"] + trained["gmm"]
                                + dist["gmm"])
     log(f"[summary] gmm: {rows['gmm']['launches']} launches: "

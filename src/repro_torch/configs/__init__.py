@@ -3,6 +3,7 @@ archs of the JAX package, in every family the port runs (dense, moe, ssm,
 hybrid, vlm, audio)."""
 from repro_torch.models.config import SHAPES
 
-from .registry import ARCHS, cell_applicable, get_config
+from .registry import ARCHS, cell_applicable, get_config, input_specs
 
-__all__ = ["ARCHS", "SHAPES", "cell_applicable", "get_config"]
+__all__ = ["ARCHS", "SHAPES", "cell_applicable", "get_config",
+           "input_specs"]

@@ -1,10 +1,11 @@
-"""Architecture registry: ``--arch`` name resolution and which (arch,
-shape) cells apply. The counterpart of ``repro.configs.registry`` (its
-``input_specs``, the dry run's abstract inputs, is JAX tooling and is not
-ported here)."""
+"""Architecture registry: ``--arch`` name resolution, which (arch, shape)
+cells apply, and ``input_specs``, the dry run's stand-ins for a cell's
+step inputs. The counterpart of ``repro.configs.registry``."""
 from __future__ import annotations
 
 from typing import Dict
+
+import torch
 
 from repro_torch.models.config import ModelConfig, ShapeConfig
 
@@ -42,3 +43,34 @@ def cell_applicable(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
             "(DESIGN.md §12)"
         )
     return True, ""
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig,
+                device="meta") -> Dict[str, object]:
+    """Stand-ins for every input of the cell's step function, the dict of
+    JAX's ``input_specs``: tensors on ``device`` (``meta`` by default,
+    which allocates nothing) where JAX has ``ShapeDtypeStruct``. The
+    decode cache is ``models.make_cache(cfg, B, S)``'s, so its dtype is
+    the config's compute dtype (JAX's ``make_cache`` defaults to bf16;
+    every registered arch computes in bf16)."""
+    B, S = shape.global_batch, shape.seq_len
+    f = lambda s, dt: torch.empty(s, dtype=dt, device=device)
+    i32, bf16 = torch.int32, torch.bfloat16
+    if shape.kind in ("train", "prefill"):
+        if cfg.family == "vlm":
+            out = {"embeds": f((B, S, cfg.d_model), bf16),
+                   "positions": f((B, S, 3), i32)}
+            if shape.kind == "train":
+                out["labels"] = f((B, S), i32)
+            return out
+        if cfg.n_codebooks:
+            return {"tokens": f((B, S, cfg.n_codebooks), i32)}
+        return {"tokens": f((B, S), i32)}
+
+    # decode: one new token against a cache of size S
+    from repro_torch.models.transformer import make_cache
+
+    tok = (B, 1, cfg.n_codebooks) if cfg.n_codebooks else (B, 1)
+    return {"tokens": f(tok, i32),
+            "cache": make_cache(cfg, B, S, device=device),
+            "cache_len": f((), i32)}

@@ -15,7 +15,8 @@ Layout:
   autotune.py  — (w, z, n) probe-run auto-tuning
 """
 from .api import GLB
-from .executor import GLBDistRun, build_place_fn, run_shardmap
+from .executor import (GLBDistRun, ShardmapLowering, build_place_fn,
+                       lower_shardmap, run_shardmap)
 from .lifeline import (MatchResult, diffusion_pairs, lifeline_buddies,
                        lifeline_mask, match_steals, random_candidates,
                        rewire_lifelines, terminated)
@@ -33,6 +34,8 @@ __all__ = [
     "GLBDistRun",
     "build_place_fn",
     "run_shardmap",
+    "lower_shardmap",
+    "ShardmapLowering",
     "MatchResult",
     "diffusion_pairs",
     "lifeline_buddies",

@@ -27,11 +27,13 @@ the same superstep: the termination test reads only gathered values.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_flatten
 
 from ..device import resolve_device
 from ..dist import collectives as C
@@ -55,6 +57,8 @@ class GLBDistRun(NamedTuple):
                                                  # summed over supersteps
     wire_bytes: int = 0              # bytes this rank handed to the
                                      # superstep loop's collectives
+    wire_by_op: Optional[Dict[str, int]] = None    # those bytes by op
+    calls_by_op: Optional[Dict[str, int]] = None   # tensors handed, by op
 
 
 def _row(tree, me: int):
@@ -150,7 +154,7 @@ def build_place_fn(problem: GLBProblem, mesh, params: GLBParams,
         stats = init_stats(1, dev)
         pending = np.zeros((P, P), bool)
         host_ms = dict.fromkeys(PHASES, 0.0)
-        wire0 = sum(C.wire_bytes().values())
+        wire0, calls0 = C.wire_bytes(), C.wire_calls()
         step, done = 0, False
 
         while not done and step < max_steps:
@@ -232,7 +236,8 @@ def build_place_fn(problem: GLBProblem, mesh, params: GLBParams,
             for name, dt in zip(PHASES, (t1 - t0, t2 - t1, t3 - t2,
                                          t4 - t3, t5 - t4)):
                 host_ms[name] += dt * 1e3
-        wire = sum(C.wire_bytes().values()) - wire0
+        wire = {k: v - wire0[k] for k, v in C.wire_bytes().items()}
+        calls = {k: v - calls0[k] for k, v in C.wire_calls().items()}
 
         local = problem.result(state)[0]
         if problem.reduce_op not in C.REDUCE:
@@ -248,7 +253,9 @@ def build_place_fn(problem: GLBProblem, mesh, params: GLBParams,
             supersteps=step,
             converged=done,
             host_ms=host_ms,
-            wire_bytes=wire,
+            wire_bytes=sum(wire.values()),
+            wire_by_op=wire,
+            calls_by_op=calls,
         )
 
     return place_fn
@@ -269,3 +276,42 @@ def run_shardmap(
     gets the same result, counters and supersteps."""
     return build_place_fn(problem, mesh, params, axis, routing,
                           device)(seed, candidates)
+
+
+class ShardmapLowering(NamedTuple):
+    collective_bytes: Dict[str, int]   # one superstep's, per device, by op
+                                       # (``analysis.comm`` keys)
+    state_bytes: int                   # one place's state and task bag
+    cost: Dict[str, float]             # ``trace_cost`` of one superstep
+
+
+def lower_shardmap(problem: GLBProblem, mesh, params: GLBParams,
+                   axis: str = "place", routing: str = "dense",
+                   device="cuda") -> ShardmapLowering:
+    """The dry run's view of the executor (JAX's AOT ``lower_shardmap``):
+    one superstep of this rank's ``build_place_fn`` on ``mesh``, whose
+    process group may be one that moves no data (the ``fake`` backend of
+    the dry run's world: every shape in a superstep is fixed by the
+    problem and ``params``, none by a received value). XLA counts the body
+    of JAX's ``while_loop`` once, so one superstep is the like-for-like
+    quantity: its collective bytes (the ``wire_by_op`` of a run of one
+    superstep), and its FLOPs and bytes (``analysis.cost.trace_cost`` of
+    that run less that of a run of none, which is the set-up and the
+    final reduction). ``peak_bytes`` is the run of one superstep's."""
+    from ..analysis.comm import collective_bytes
+    from ..analysis.cost import trace_cost
+
+    dev = resolve_device(device)
+    fns = [build_place_fn(problem, mesh, dataclasses.replace(
+        params, max_supersteps=n), axis, routing, dev) for n in (0, 1)]
+    runs = []
+    c0, c1 = (trace_cost(lambda f=f: runs.append(f())) for f in fns)
+    run = runs[1]
+    cost = {k: c1[k] - c0[k] for k in ("flops", "bytes")}
+    cost["peak_bytes"] = c1["peak_bytes"]
+    P = C.size(mesh.get_group(axis))
+    leaves = tree_flatten(problem.init_place(P, dev))[0]
+    state_bytes = sum(t.numel() * t.element_size() for t in leaves) // P
+    return ShardmapLowering(
+        collective_bytes(run.wire_by_op, run.calls_by_op), state_bytes,
+        cost)

@@ -20,7 +20,9 @@ caller's process group's; nothing here chooses one or falls back.
 
 Each call adds the bytes of the send buffer this rank hands to it to a
 per-process count by operation (``wire_bytes`` / ``reset_wire``): the
-executor's and the smoke script's wire budget per superstep.
+executor's and the smoke script's wire budget per superstep; and one per
+tensor handed to a per-process count of calls (``wire_calls``), which the
+dry run reports beside the bytes (``analysis.comm``).
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ import torch.distributed as dist
 
 OPS = ("all_gather", "all_to_all", "ppermute", "all_reduce")
 _wire: Dict[str, int] = dict.fromkeys(OPS, 0)
+_calls: Dict[str, int] = dict.fromkeys(OPS, 0)
 
 
 def wire_bytes() -> Dict[str, int]:
@@ -39,13 +42,21 @@ def wire_bytes() -> Dict[str, int]:
     return dict(_wire)
 
 
+def wire_calls() -> Dict[str, int]:
+    """Tensors this process has handed to each collective since the last
+    ``reset_wire``."""
+    return dict(_calls)
+
+
 def reset_wire() -> None:
     for k in _wire:
         _wire[k] = 0
+        _calls[k] = 0
 
 
 def _count(op: str, *tensors: torch.Tensor) -> None:
     _wire[op] += sum(t.numel() * t.element_size() for t in tensors)
+    _calls[op] += len(tensors)
 
 
 def _staged(group) -> bool:
@@ -72,7 +83,9 @@ def all_gather(x: torch.Tensor, group) -> torch.Tensor:
     """(n, *x.shape): every rank's x in group-rank order."""
     _count("all_gather", x)
     src = _wire_copy(x, group)
-    out = [torch.empty_like(src) for _ in range(size(group))]
+    # zeros, not empty: a backend that moves no data (the dry run's fake
+    # world) leaves them as they are
+    out = [torch.zeros_like(src) for _ in range(size(group))]
     dist.all_gather(out, src, group=group)
     return torch.stack(out).to(x.device)
 
@@ -86,7 +99,7 @@ def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
                          f"the group's {n} ranks")
     _count("all_to_all", x)
     src = _wire_copy(x, group)
-    out = torch.empty_like(src)
+    out = torch.zeros_like(src)
     dist.all_to_all_single(out, src, group=group)
     return out.to(x.device)
 

@@ -10,12 +10,17 @@ plain PyTorch version (the counterpart of
 ``repro.kernels.ref.attention_ref``). Query ``i`` sits at absolute
 position ``Skv - Sq + i``; a row with no visible key outputs zeros, as
 the kernel does (the JAX oracle's softmax would give NaN there).
+
+``attention_chunked`` is ``repro.kernels.ref.attention_chunked``, the
+reference's memory-bounded plain path (``attn_impl="chunked"``): not a
+Pallas kernel, so plain PyTorch on every device, as there.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import _build
 from .autograd import KernelFunction, needs_grad
@@ -47,6 +52,45 @@ def _masked_softmax_av(logits, mask, vx, dtype):
     p = torch.softmax(logits, dim=-1)
     p = torch.where(mask.any(dim=-1, keepdim=True), p, 0.0)
     return torch.einsum("bhqk,bkhd->bqhd", p, vx).to(dtype)
+
+
+def attention_chunked(q, k, v, causal: bool = True,
+                      scale: float | None = None, block_q: int = 512):
+    """Memory-bounded attention: q in blocks of ``min(block_q, Sq)`` rows,
+    each against the whole kv, so the scores live as (B, Hkv, group, bq,
+    Skv) float32 for one block at a time rather than for all Sq rows.
+    GQA contracts against the raw (B, Skv, Hkv, D) kv (no repeated kv).
+    Each block runs under ``torch.utils.checkpoint`` (non-reentrant), as
+    JAX's ``jax.checkpoint``: the backward recomputes the block's
+    probabilities instead of saving them. Causal masking puts query ``i``
+    at ``Skv - Sq + i`` and fills with ``-1e30``, as the reference does
+    (so a row with no visible key is a uniform average, not zeros)."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    bq = min(block_q, Sq)
+    if Sq % bq:
+        raise ValueError(f"attention_chunked: {Sq} query rows do not split "
+                         f"into blocks of {bq}")
+    kpos = torch.arange(Skv, device=q.device)[None, :]
+
+    def one_block(qb, k, v, i):
+        qg = qb.reshape(B, bq, Hkv, group, D).float()
+        logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * scale
+        if causal:
+            qpos = (i * bq + torch.arange(bq, device=q.device))[:, None] \
+                + (Skv - Sq)
+            logits = torch.where(qpos >= kpos, logits,
+                                 torch.full((), -1e30, device=q.device))
+        p = torch.softmax(logits, dim=-1)
+        o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+        return o.reshape(B, bq, Hq, D).to(q.dtype)
+
+    blocks = [checkpoint(one_block, q[:, i * bq:(i + 1) * bq], k, v, i,
+                         use_reentrant=False)
+              for i in range(Sq // bq)]
+    return torch.cat(blocks, dim=1)
 
 
 def flash_attention(q, k, v, *, causal: bool = True,

@@ -29,8 +29,17 @@ def gmm_ref(x, w, group_sizes):
     """Plain grouped matrix product: x (T, D), w (E, D, F), group_sizes
     (E,) int. One float32 product per group on its slice of rows (never
     the per-row weight gather ``w[expert_of]``, which at the MoE prefill
-    shape would be a 22 GB tensor); rows past the groups are zeros."""
+    shape would be a 22 GB tensor); rows past the groups are zeros.
+
+    Sizes on the ``meta`` device have no values to read: there every group
+    holds T / E rows, the MoE layer's capacity layout (JAX's einsum
+    dispatch over (E, cap, D)), so that a shape-only trace counts its
+    work."""
     T = x.shape[0]
+    if group_sizes.device.type == "meta":
+        E, D, F = w.shape
+        return torch.bmm(x.float().reshape(E, T // E, D),
+                         w.float()).reshape(T, F).to(x.dtype)
     out = torch.zeros((T, w.shape[2]), dtype=torch.float32, device=x.device)
     start = 0
     for e, n in enumerate(group_sizes.tolist()):

@@ -8,15 +8,18 @@ CUDA tensor goes to the hand-written kernel and a CPU tensor to its plain
 version (each kernel wrapper makes that choice from the tensor's device);
 the ``*_ref`` impls (and ``ssd``'s ``ref`` / ``chunked``, ``gmm``'s and
 ``expand_uts``'s ``ref``) force a plain version, which is the yardstick
-the kernels are held to. Every TPU kernel of the JAX package has its
-kernel here: the four attention kernels, ``ssd_chunked``, ``gmm`` and
-``uts_expand``.
+the kernels are held to. ``attention``'s ``chunked`` is the reference's
+memory-bounded plain path (``attention_chunked``), plain on every
+device; with ``lengths`` or ``block_tables`` it is the plain decode or
+paged version, as JAX normalises it. Every TPU kernel of the JAX package
+has its kernel here: the four attention kernels, ``ssd_chunked``, ``gmm``
+and ``uts_expand``.
 """
 from __future__ import annotations
 
 from typing import Dict
 
-from .flash_attention import attention_ref, flash_attention
+from .flash_attention import attention_chunked, attention_ref, flash_attention
 from .flash_decode import decode_ref, flash_decode
 from .mamba2_ssd import ssd_chunked, ssd_chunked_ref, ssd_ref
 from .moe_gmm import gmm as gmm_kernel
@@ -25,7 +28,9 @@ from .paged_decode import (paged_decode, paged_decode_ref, paged_prefill,
                            paged_prefill_ref)
 from .uts_expand import uts_expand, uts_expand_ref
 
-IMPLS = ("auto", "ref", "decode", "decode_ref", "paged", "paged_ref")
+IMPLS = ("auto", "ref", "chunked", "decode", "decode_ref", "paged",
+         "paged_ref")
+CHUNKED_BLOCK_Q = 512       # repro/kernels/ops.py:117's block_q
 SSD_IMPLS = ("auto", "ref", "chunked")
 GMM_IMPLS = ("auto", "ref")
 UTS_IMPLS = ("auto", "ref")
@@ -45,7 +50,7 @@ def reset_launches() -> None:
 
 def attention(q, k, v, *, causal=True, scale=None, impl: str = "auto",
               lengths=None, block_tables=None, q_offset=None):
-    """impl: auto | ref | decode | decode_ref | paged | paged_ref
+    """impl: auto | ref | chunked | decode | decode_ref | paged | paged_ref
 
     ``lengths`` ((B,) i32 visible-window sizes against a padded KV cache)
     plus Sq == 1 selects the decode path. ``block_tables`` ((B,
@@ -68,7 +73,7 @@ def attention(q, k, v, *, causal=True, scale=None, impl: str = "auto",
             f"{q.shape[1]}; dropping the window mask would silently "
             "attend to dead cache rows"
         )
-    ref = impl.endswith("ref")
+    ref = impl.endswith("ref") or impl == "chunked"
     if block_tables is not None:
         if lengths is None:
             raise ValueError("block_tables requires lengths")
@@ -89,6 +94,9 @@ def attention(q, k, v, *, causal=True, scale=None, impl: str = "auto",
         return fn(q, k, v, lengths, scale=scale)
     if impl.startswith("decode"):
         raise ValueError(f"impl {impl!r} needs Sq == 1 and lengths")
+    if impl == "chunked":
+        return attention_chunked(q, k, v, causal=causal, scale=scale,
+                                 block_q=CHUNKED_BLOCK_Q)
     fn = attention_ref if ref else flash_attention
     return fn(q, k, v, causal=causal, scale=scale)
 

@@ -315,3 +315,26 @@ def model_cases(inp):
         ("moe", _moe), ("compress", _compress), ("pipeline", _pipeline),
         ("shardings", _shardings), ("restore", _restore),
         ("collectives", _collectives))}
+
+
+def moe_ep_wire(inp):
+    """One ``moe_impl="ep"`` MoE layer on a (2 data x 2 model) mesh of 4
+    ranks, on this rank's data shard: what it handed to the collectives
+    (``wire_bytes`` and ``wire_calls`` over the call)."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.dist import collectives as C
+    from repro_torch.models.moe import moe_fwd
+
+    mesh = _meshes([((2, 2), ("data", "model"))])[((2, 2),
+                                                    ("data", "model"))]
+    d = mesh.get_local_rank("data")
+    p = {k: torch.from_numpy(v) for k, v in inp["p"].items()}
+    x = torch.from_numpy(inp["x"])
+    half = x.shape[0] // 2
+    cfg = dataclasses.replace(ARCHS[inp["arch"]].smoke(), moe_impl="ep",
+                              dtype="float32")
+    C.reset_wire()
+    moe_fwd(p, x[d * half:(d + 1) * half], cfg, mesh=mesh)
+    return dict(wire=C.wire_bytes(), calls=C.wire_calls())

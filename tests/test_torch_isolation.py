@@ -1,7 +1,8 @@
 """The port stands alone: neither ``repro_torch`` (its training
-subpackages ``train``, ``data``, ``ft`` and ``launch`` included) nor
-``chip_smoke.py`` imports JAX or the JAX package, and an entry point asked
-for CUDA on a machine without it (the training CLI by default) raises
+subpackages ``train``, ``data``, ``ft`` and ``launch`` and the dry run's
+``analysis`` included) nor ``chip_smoke.py`` imports JAX or the JAX
+package, and an entry point asked for CUDA on a machine without it (the
+training CLI by default) raises
 instead of running on the CPU."""
 import ast
 import os
@@ -76,7 +77,10 @@ def test_importing_every_module_loads_no_jax():
               "repro_torch.launch.train", "repro_torch.launch.mesh",
               "repro_torch.launch.ranks", "repro_torch.core.executor",
               "repro_torch.dist.collectives", "repro_torch.dist.sharding",
-              "repro_torch.dist.compress", "repro_torch.dist.pipeline"):
+              "repro_torch.dist.compress", "repro_torch.dist.pipeline",
+              "repro_torch.analysis.cost", "repro_torch.analysis.comm",
+              "repro_torch.analysis.roofline",
+              "repro_torch.analysis.report", "repro_torch.launch.dryrun"):
         assert m in mods, m
     assert len(mods) > 20
     code = (
@@ -117,7 +121,7 @@ def test_chip_smoke_fails_without_card_or_alone(tmp_path):
 
 def test_cuda_requested_without_cuda_raises(monkeypatch):
     from repro_torch.configs import ARCHS
-    from repro_torch.core import GLB, run_sim
+    from repro_torch.core import GLB, GLBParams, lower_shardmap, run_sim
     from repro_torch.launch.train import train
     from repro_torch.train.trainer import init_train_state
     from repro_torch.problems.fib import fib_problem
@@ -160,6 +164,8 @@ def test_cuda_requested_without_cuda_raises(monkeypatch):
                  lambda: GLB(fib_problem(8), P=2).run(),
                  lambda: GLB(fib_problem(8), mesh=Mesh(),
                              mode="shard_map").run(),     # default: cuda
+                 lambda: lower_shardmap(fib_problem(8), Mesh(),
+                                        GLBParams()),      # default: cuda
                  lambda: init_train_state(cfg),             # default: cuda
                  lambda: train(["--arch", "tinyllama-1.1b", "--steps",
                                 "1"]),                      # default: cuda
