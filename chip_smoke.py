@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phase dist   # phases 1, 2 and 9 alone
+    python3 chip_smoke.py --phase spmd   # phases 1, 2 and 11 alone
 
 Phases, in order; any failure exits non-zero:
   1. device  — requires CUDA; prints the card's name and power limit.
@@ -39,9 +40,10 @@ Phases, in order; any failure exits non-zero:
                experts with one row, the rest empty) and an uneven case
                (empty groups, rows past the last group), in bf16 and f32,
                timed beside torch.bmm on the same work.
-  3b. moe    — moonshot-v1-16b-a3b at full width (48 layers, 64 experts
-               top-6, random weights made on the card from a seed, bf16,
-               56 GB) serving 16 requests in the three engine modes; gmm
+  3b. moe    — moonshot-v1-16b-a3b at full width (its 48 layers cut to
+               24, MOE_LAYERS; 64 experts top-6, random weights made on the
+               card from a seed, bf16, 29 GB) serving 16 requests in the
+               three engine modes; gmm
                and the mode's attention kernels must launch in each (their
                launches count beside the tinyllama runs'). A
                profile of one decode step (device busy, gmm's share), the
@@ -127,7 +129,7 @@ Phases, in order; any failure exits non-zero:
                uts_expand must have been launched; a few of its
                supersteps run under torch.profiler. Then fib(24) and BC on an R-MAT graph of
                scale 10 on 64 places against their oracles, and UTS at
-               depth 9 on 64 places through the kernel and through the
+               depth 8 on 64 places through the kernel and through the
                plain expansion, which must agree in every number.
   7. parity  — kernel path vs plain path end to end: identical greedy
                tokens on the f32 smoke configs (tinyllama in every engine
@@ -167,7 +169,7 @@ Phases, in order; any failure exits non-zero:
                since it refuses two ranks on one device). Every line
                names its backend and world size. (a) GLB(mode=
                "shard_map") on 8 ranks, one place each: the paper's UTS
-               (b0 4, r 19) at depth 9 (10 with --phase dist, which runs
+               (b0 4, r 19) at depth 8 (10 with --phase dist, which runs
                phases 1, 2 and 9 alone; DIST_SIZES) with n 256, w 2,
                steal_k 64, in
                the dense and the lifeline routing: the count must equal
@@ -217,6 +219,29 @@ Phases, in order; any failure exits non-zero:
                at that cell's attention shape (8, 512, 32/4 heads of 64),
                bf16 and f32, values and the gradients of q, k and v within
                TOL of max(1, max |ref|).
+  11. spmd  — the models on DTensors: tinyllama-1.1b at full width, its
+               parameters, batch and cache laid out by dist.sharding
+               (distribute_tree of tree_shardings) on a (2 data x 2 model)
+               mesh over 4 gloo ranks sharing the card (all-gathers staged
+               through pinned host memory by dist.collectives.
+               CollectiveLog), each step held to the same step on one rank
+               (rank 0, plain tensors, the same weights). (a) prefill, 8 x
+               256 bf16, flash_attention on each rank's local heads:
+               logits and the cache within TOL of max |ref|, the next
+               tokens equal; (b) 8 greedy decode steps on the
+               sequence-sharded cache (the masked full-cache path): logits
+               within TOL; (c) one training step, 4 x 512 (phase 8's batch
+               halved, for the time limit), bf16 on float32 masters, remat
+               full: the loss, and every gradient leaf
+               within TOL of its max or as close to the float32 gradient
+               as the one-rank route's plus TOL; (d) every rank's
+               memory_allocated grows by exactly the dry run's per-device
+               argument_size_in_bytes of that cell on a fake world of 4
+               (in 512-byte blocks), its peak printed beside the predicted
+               one; (e) each step's ms, and the bytes each rank handed to
+               the collectives equal to analysis.comm.traced_lm's for the
+               prefill, decode and training cells (traced on a fake world
+               of 4 with this device's mesh); flash_attention's launches.
 The last two lines of standard output are one JSON object with each
 kernel's numbers and the contract line {"ok": true, "device": {...}}.
 """
@@ -964,6 +989,9 @@ def kernel_gmm(rng):
 # ------------------------------------------------------------ phase 3b
 # Requests served in each engine mode (tinyllama's N_REQ).
 MOE_N_REQ = N_REQ
+# moonshot's 48 layers cut to 24, so that the whole run ends within its
+# time (PERF.md §6)
+MOE_LAYERS = 24
 # The attention kernels each engine mode runs, beside gmm.
 MOE_MODE_KERNELS = {
     "contiguous": ("flash_attention", "flash_decode"),
@@ -980,8 +1008,10 @@ MOE_LAYER_ABS = {"bfloat16": 2.0 ** -6, "float32": 1e-4}
 
 
 def phase_moe():
-    """moonshot-v1-16b-a3b at full width: serve, profile, parity. Returns
-    each kernel's launches over the three serving runs."""
+    """moonshot-v1-16b-a3b at full width, its depth cut to MOE_LAYERS:
+    serve, profile, parity. Returns each kernel's launches over the three
+    serving runs."""
+    import dataclasses
     import gc
 
     import numpy as np
@@ -992,7 +1022,7 @@ def phase_moe():
     from repro_torch.models import init_lm
     from repro_torch.serve import Engine
 
-    cfg = ARCHS[MOE]
+    cfg = dataclasses.replace(ARCHS[MOE], n_layers=MOE_LAYERS)
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     t0 = time.time()
@@ -2309,6 +2339,8 @@ UTS_MAIN = dict(M=1024, W=256)
 UTS_TREE = dict(b0=4.0, depth=12, seed=19)
 UTS_PARAMS = dict(n=256, w=2, steal_k=64)    # benchmarks/bench_uts.py uts_g
 UTS_P = 1024
+UTS_COMPARE_DEPTH = 8      # the kernel vs plain run (9 until the whole run
+                           # grew past its time)
 # uts_expand's int32 operations per lane: three fmix32 of 8 (3 shifts, 3
 # xors, 2 multiplies), 7 to mix the index in, 32 compares and 32 adds.
 UTS_OPS_PER_LANE = 95
@@ -2547,21 +2579,24 @@ def phase_glb():
 
     # The same UTS run through the kernel and through the plain expansion.
     runs = []
+    compare = dict(UTS_TREE, depth=UTS_COMPARE_DEPTH)
+    want = uts.uts_count_bfs(**compare)
     for impl in ("auto", "ref"):
-        prob = uts.uts_problem(**dict(UTS_TREE, depth=9), impl=impl)
+        prob = uts.uts_problem(**compare, impl=impl)
         ops.reset_launches()
         glb = GLB(prob, GLBParams(**UTS_PARAMS), P=64, device=DEVICE)
         t0 = time.time()
         res = int(glb.run(seed=0))
         runs.append((res, glb.supersteps,
                      {k: v.tolist() for k, v in glb.stats.items()}))
-        log(f"[glb] UTS depth 9 on 64 places, impl {impl}: {res} nodes, "
+        log(f"[glb] UTS depth {UTS_COMPARE_DEPTH} on 64 places, impl "
+            f"{impl}: {res} nodes, "
             f"{glb.supersteps} supersteps, {time.time() - t0:.2f} s, "
             f"uts_expand launches {ops.kernel_launches()['uts_expand']}")
     same = runs[0] == runs[1]
     log(f"[glb] kernel vs plain expansion: result, supersteps and all "
         f"{len(runs[0][2])} counters {'identical' if same else 'DIFFER'}")
-    if not same or runs[0][0] != small:
+    if not same or runs[0][0] != want:
         fail("UTS through the kernel and the plain expansion differ")
     return row, launches
 
@@ -3304,12 +3339,13 @@ def phase_train(smi):
 # Sizes of (a) to (c). Run alone (``--phase dist``), the phase takes UTS at
 # depth 10 (1,962,542 nodes; depth 11 would take some 20 minutes on
 # ranks that time-slice one card), fib(24) and NCCL at depth 9. In the
-# whole run, which must end within 1200 s, phases 1-8 take 700-760 s, so
-# the sizes are cut: depth 9, fib(20), NCCL at depth 7 (PERF.md §6).
+# whole run, which must end within 1200 s, phases 1-8 take 700-900 s and
+# phases 10 and 11 another 105-160 s, so the sizes are cut: depth 8,
+# fib(20), NCCL at depth 7 (PERF.md §6).
 DIST_SIZES = {
     "alone": dict(uts=dict(UTS_TREE, depth=10), fib=dict(n=24),
                   nccl=dict(UTS_TREE, depth=9)),
-    "whole": dict(uts=dict(UTS_TREE, depth=9), fib=dict(n=20),     # 490,807
+    "whole": dict(uts=dict(UTS_TREE, depth=8), fib=dict(n=20),     # 122,734
                   nccl=dict(UTS_TREE, depth=7)),                    # 30,688
 }
 DIST_WORLD = 8
@@ -4037,11 +4073,23 @@ DRY_MEMORY = ("argument_size_in_bytes", "output_size_in_bytes",
               "alias_size_in_bytes", "temp_size_in_bytes", "temp_basis")
 DRY_TRAIN = dict(arch="tinyllama-1.1b", batch=8, seq=512)   # phase 8 (a)
 ALLOC_ROUND = 512    # the CUDA caching allocator's block granularity
+SEGMENT_ROUND = 2 << 20   # its segments for blocks past LARGE_ALLOC
+LARGE_ALLOC = 10 << 20
+SPLIT_MIN = 1 << 20       # a segment's rest is split off only past this
 
 
 def _alloc_bytes(n: int) -> int:
-    """What the caching allocator books for an n-byte tensor."""
-    return -(-n // ALLOC_ROUND) * ALLOC_ROUND if n else 0
+    """What the caching allocator books for an n-byte tensor allocated
+    afresh (no cached block reused): n in 512-byte blocks; past 10 MiB, a
+    segment in 2 MiB steps, the whole of it when its rest would be 1 MiB
+    or less."""
+    if not n:
+        return 0
+    r = -(-n // ALLOC_ROUND) * ALLOC_ROUND
+    if r <= LARGE_ALLOC:
+        return r
+    seg = -(-r // SEGMENT_ROUND) * SEGMENT_ROUND
+    return seg if seg - r <= SPLIT_MIN else r
 
 
 def phase_dryrun(smi):
@@ -4101,7 +4149,7 @@ def phase_dryrun(smi):
         DR.fake_world(1)
         mesh = init_device_mesh("cpu", (1, 1),
                                 mesh_dim_names=("data", "model"))
-        tr = DR.trace_lm(DR._cell_cfg(cfg, shape), shape)
+        tr = DR.trace_lm(DR._cell_cfg(cfg, shape), shape, mesh)
         rec = DR.lm_record(tr, mesh)
     finally:
         DR.close_world()
@@ -4192,14 +4240,374 @@ def phase_dryrun(smi):
     return {"flash_attention": launches["flash_attention"]}
 
 
+# ----------------------------------------------------------- phase 11
+# The models on DTensors: tinyllama-1.1b at full width sharded (2 data x 2
+# model) over 4 gloo ranks sharing the card, each step held to the same
+# step on one rank (rank 0, plain tensors, the same weights).
+# The training step's batch is phase 8's 8 x 512 cut to 4 x 512, so that
+# the whole run ends within its time (PERF.md §6).
+SPMD = dict(arch="tinyllama-1.1b", world=4, mesh=(2, 2), prefill=(8, 256),
+            decode_steps=8, train=(4, 512))
+
+
+def _spmd_steps(log_, fn, device):
+    """``fn()`` timed (host clock around a synchronise) with the bytes and
+    ops it handed to the collectives (the deltas of ``log_``)."""
+    b0, c0 = dict(log_.bytes), dict(log_.count)
+    _sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(device)
+    ms = (time.perf_counter() - t0) * 1e3
+    wire = {k: v - b0.get(k, 0) for k, v in log_.bytes.items()
+            if v - b0.get(k, 0)}
+    ops_ = sum(log_.count.values()) - sum(c0.values())
+    return out, ms, dict(wire, count=ops_)
+
+
+def _spmd_err(got, want):
+    """max |got - want| / max |want|."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp(min=1e-30)).item()
+
+
+def _allocated(device):
+    """(memory_allocated, the allocator's requested bytes) of ``device``:
+    the bytes of its blocks and the bytes the tensors asked for."""
+    import torch
+
+    if device != "cuda":
+        return 0, 0
+    stats = torch.cuda.memory_stats()
+    return (torch.cuda.memory_allocated(),
+            stats.get("requested_bytes.all.current", 0))
+
+
+def _spmd_rank(device, job):
+    """One of the SPMD world's ranks: (a) prefill, (b) decode, (c) one
+    training step's loss and gradients, (d) the training cell's argument
+    bytes and peak, (e) each step's ms and collective bytes; rank 0 also
+    runs every step unsharded on plain tensors and holds the sharded
+    ones to it. Every collective runs under ``CollectiveLog`` (gloo's
+    CUDA all-gathers staged through host memory)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.dist.collectives import CollectiveLog
+    from repro_torch.dist.sharding import (batch_axes, distribute_tree,
+                                           param_axes, tree_shardings)
+    from repro_torch.kernels import ops
+    from repro_torch.models import decode_step, init_lm, prefill
+    from repro_torch.models.lm import argmax_vocab
+    from repro_torch.train.optimizer import (OptConfig, adamw_init,
+                                             adamw_update, tree_leaves)
+    from repro_torch.train.trainer import (loss_and_grads, make_decode_step,
+                                           make_prefill_step)
+
+    cfg = job["cfg"]
+    lead = dist.get_rank() == 0
+    mesh = init_device_mesh(device, job["mesh"],
+                            mesh_dim_names=("data", "model"))
+
+    def lay(tree, axes):
+        return distribute_tree(tree, tree_shardings(axes, tree, mesh))
+
+    out, errs = {}, {}
+    log_ = CollectiveLog()
+    gen = torch.Generator(device=device)
+
+    # (c) + (d) first, on a fresh allocator (blocks reused inside older
+    # segments would book more than their 512-byte rounding): float32
+    # masters, bf16 compute, remat full
+    Bt, St = job["train"]
+    with log_:
+        full = init_lm(cfg, gen.manual_seed(2), device, dtype=torch.float32)
+        ttoks = torch.randint(0, cfg.vocab, (Bt, St), generator=gen,
+                              device=device, dtype=torch.int32)
+        _sync(device)
+        base, asked = _allocated(device)
+        P = lay(full, param_axes(cfg, full))
+        O = adamw_init(P)
+        batch = lay({"tokens": ttoks}, batch_axes(cfg, "train"))
+        _sync(device)
+        grown, asked_grown = (a - b for a, b in zip(_allocated(device),
+                                                    (base, asked)))
+        locs = [t.to_local() for t in tree_leaves([P, O, batch])]
+        out["args_exact"] = sum(t.numel() * t.element_size() for t in locs)
+        out["args_booked"] = sum(_alloc_bytes(t.numel() * t.element_size())
+                                 for t in locs)
+        out["args_grown"] = grown
+        out["args_requested"] = asked_grown
+        del locs
+        ops.reset_launches()
+        # one training step, make_train_step's body at one microbatch:
+        # the loss and gradients, then AdamW; its peak over the memory
+        # that is not its arguments'
+        if device == "cuda":
+            resident = torch.cuda.memory_allocated() - grown
+            torch.cuda.reset_peak_memory_stats()
+        (loss, m2, grads), grads_ms, grads_bytes = _spmd_steps(
+            log_, lambda: loss_and_grads(P, cfg, batch), device)
+        _, opt_ms, opt_bytes = _spmd_steps(
+            log_, lambda: adamw_update(P, grads, O, OptConfig()), device)
+        out["peak"] = (torch.cuda.max_memory_allocated() - resident
+                       if device == "cuda" else 0)
+        out["grads_ms"], out["train_ms"] = grads_ms, grads_ms + opt_ms
+        out["train_bytes"] = {k: grads_bytes.get(k, 0) + opt_bytes.get(k, 0)
+                              for k in set(grads_bytes) | set(opt_bytes)}
+        out["loss"] = float(loss.full_tensor())
+        out["train_loss_finite"] = math.isfinite(out["loss"])
+        launches_train = ops.kernel_launches()
+        # the gradients, gathered leaf by leaf (rank 0 keeps them in host
+        # memory for the comparison)
+        kept = []
+        for g in tree_leaves(grads):
+            gf = g.full_tensor()
+            if lead:
+                kept.append(gf.cpu())
+            del gf
+        del grads, loss, m2, P, O, batch
+        if lead:      # the one-rank step, and the float32 compute's
+            _, m1, ref = loss_and_grads(full, cfg, {"tokens": ttoks})
+            errs["loss_one_rank"] = float(m1["loss"])
+            f32 = dataclasses.replace(cfg, dtype="float32")
+            ref32 = loss_and_grads(full, f32, {"tokens": ttoks})[2]
+            errs["grads"] = [
+                (i, _spmd_err(g.to(device), r), _spmd_err(g.to(device), r32),
+                 _spmd_err(r, r32))
+                for i, (g, r, r32) in enumerate(zip(
+                    kept, tree_leaves(ref), tree_leaves(ref32),
+                    strict=True))]
+            del ref, ref32, m1, kept
+        del full
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    dist.barrier()
+
+    # (a) + (b): the serving weights, bf16
+    B, S = job["prefill"]
+    steps = job["decode_steps"]
+    with log_, torch.no_grad():
+        params = init_lm(cfg, gen.manual_seed(0), device)
+        toks = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                             device=device, dtype=torch.int32)
+        P = lay(params, param_axes(cfg, params))
+        batch = lay({"tokens": toks}, batch_axes(cfg, "prefill"))
+        if not lead:
+            del params
+        dist.barrier()
+        ops.reset_launches()
+        # make_prefill_step as the dry run's prefill cell runs it (its
+        # cache just the prompt's), then lm.prefill into a cache with room
+        # for the decode steps, whose logits and cache are held
+        (tok, _), out["prefill_ms"], out["prefill_bytes"] = _spmd_steps(
+            log_, lambda: make_prefill_step(cfg, S)(P, batch), device)
+        logits, cache = prefill(P, cfg, batch, max_seq=S + steps)
+        toks_out, dec_ms, dec_logits = [tok.full_tensor()], [], []
+        out["prefill_tokens_agree"] = bool(torch.equal(
+            argmax_vocab(logits[:, -1:], cfg.vocab).full_tensor(),
+            toks_out[0]))
+        for i in range(steps):
+            t = lay({"tokens": toks_out[-1].to(torch.int32)},
+                    {"tokens": batch_axes(cfg, "decode")["tokens"]})
+            (lg, cache), ms, wire = _spmd_steps(
+                log_, lambda: decode_step(P, cfg, t["tokens"], cache, S + i),
+                device)
+            dec_ms.append(ms)
+            out["decode_bytes"] = wire
+            dec_logits.append(lg)
+            toks_out.append(argmax_vocab(lg, cfg.vocab).full_tensor())
+        out["decode_ms"] = dec_ms
+        launches_serve = ops.kernel_launches()
+        full_logits = logits.full_tensor()
+        full_cache = {k: v.full_tensor() for k, v in cache.items()}
+        full_dec = [lg.full_tensor() for lg in dec_logits]
+        # make_decode_step once more, as the dry run's decode cell runs it
+        # (a replicated scalar cache length), its bytes for (e)
+        t = lay({"tokens": toks_out[-1].to(torch.int32),
+                 "cache_len": torch.tensor(S + steps - 1, dtype=torch.int32,
+                                           device=device)},
+                {k: batch_axes(cfg, "decode")[k]
+                 for k in ("tokens", "cache_len")})
+        _, _, out["decode_step_bytes"] = _spmd_steps(
+            log_, lambda: make_decode_step(cfg)(P, t["tokens"], cache,
+                                                t["cache_len"]), device)
+        if lead:
+            ops.reset_launches()
+            lg1, c1 = prefill(params, cfg, {"tokens": toks}, max_seq=S + steps)
+            errs["prefill_logits"] = _spmd_err(full_logits, lg1)
+            ref_tok = argmax_vocab(lg1[:, -1:], cfg.vocab)
+            errs["prefill_tokens_equal"] = bool(torch.equal(ref_tok,
+                                                            toks_out[0]))
+            dec = []
+            for i in range(steps):
+                lg1, c1 = decode_step(params, cfg, toks_out[i].to(torch.int32),
+                                      c1, S + i)
+                dec.append(_spmd_err(full_dec[i], lg1))
+            errs["decode_logits"] = dec
+            errs["cache"] = {k: _spmd_err(full_cache[k], c1[k])
+                             for k in c1}
+            del params, lg1, c1
+
+    out["launches"] = {k: launches_serve[k] + launches_train[k]
+                       for k in launches_serve}
+    out["errs"] = errs
+    return out
+
+
+def phase_spmd(smi):
+    """Phase 11: tinyllama-1.1b at full width on DTensors, (2 data x 2
+    model) over 4 gloo ranks on the card, against one rank; the dry run's
+    per-device prediction of the training cell held to the card. Returns
+    flash_attention's launches over the sharded steps."""
+    import dataclasses
+
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.analysis.comm import traced_lm
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.ranks import run_ranks
+    from repro_torch.models.config import ShapeConfig
+
+    t_phase = time.time()
+    cfg = dataclasses.replace(ARCHS[SPMD["arch"]], remat="full")
+    n = SPMD["world"]
+    tag = f"[spmd gloo x{n}]"
+    B, S = SPMD["prefill"]
+    Bt, St = SPMD["train"]
+    steps = SPMD["decode_steps"]
+    # the dry run of the three steps on a fake world of 4, this device's
+    # mesh type (DTensor picks its redistributions by it)
+    cells = {"prefill": ShapeConfig("prefill", S, B, "prefill"),
+             "decode": ShapeConfig("decode", S + steps, B, "decode"),
+             "train": ShapeConfig("train", St, Bt, "train")}
+    traced, mem = {}, None
+    t0 = time.time()
+    try:
+        DR.fake_world(n)
+        mesh = init_device_mesh(DEVICE, SPMD["mesh"],
+                                mesh_dim_names=("data", "model"))
+        for kind, shape in cells.items():
+            c = DR._cell_cfg(cfg, shape)
+            if kind == "train":
+                tr = DR.trace_lm(c, shape, mesh)
+                mem = DR.lm_memory(tr, mesh)
+                traced[kind] = tr.coll
+            else:
+                traced[kind] = traced_lm(c, shape, mesh)["coll"]
+    finally:
+        DR.close_world()
+    log(f"{tag} the dry run's per-device trace of the three cells on a "
+        f"fake world of {n} ({DEVICE} mesh): {time.time() - t0:.1f} s")
+    job = dict(cfg=cfg, mesh=SPMD["mesh"], prefill=SPMD["prefill"],
+               decode_steps=steps, train=SPMD["train"])
+    t0 = time.time()
+    ranks = run_ranks(_spmd_rank, n, DEVICE, job, backend="gloo",
+                      timeout=900, pg_timeout=300)
+    log(f"{tag} world of {n} ranks on one {DEVICE} device, {SPMD['mesh']} "
+        f"(data x model), collectives through gloo, all-gathers staged "
+        f"through pinned host memory: {time.time() - t0:.1f} s with "
+        f"start-up; {smi}")
+    e = ranks[0]["errs"]
+    tol = TOL["bfloat16"]
+    # (a) prefill
+    ok_a = (e["prefill_logits"] <= tol and e["prefill_tokens_equal"]
+            and max(e["cache"].values()) <= tol
+            and all(r["prefill_tokens_agree"] for r in ranks))
+    log(f"{tag} (a) prefill {B} x {S}, bf16, flash_attention on local "
+        f"heads: logits max |sharded - one rank| / max |logit| "
+        f"{e['prefill_logits']:.3e} (TOL {tol}); next tokens "
+        f"{'equal' if e['prefill_tokens_equal'] else 'DIFFER'}; cache "
+        + ", ".join(f"{k} {v:.3e}" for k, v in e["cache"].items())
+        + " after the decode steps")
+    # (b) decode
+    worst_dec = max(e["decode_logits"])
+    ok_b = worst_dec <= tol
+    log(f"{tag} (b) {steps} decode steps on the sequence-sharded cache: "
+        f"logits max |sharded - one rank| / max |logit| per step "
+        + ", ".join(f"{x:.3e}" for x in e["decode_logits"])
+        + f" (TOL {tol})")
+    # (c) training
+    bad = []
+    for i, direct, far, far1 in e["grads"]:
+        if direct > tol and far > far1 + tol:
+            bad.append((i, direct, far, far1))
+    held = sum(1 for _, d, _, _ in e["grads"] if d > tol)
+    loss_err = abs(ranks[0]["loss"] - e["loss_one_rank"]) / abs(
+        e["loss_one_rank"])
+    ok_c = not bad and loss_err <= tol
+    log(f"{tag} (c) one training step {Bt} x {St}, bf16 on float32 "
+        f"masters, remat full: loss {ranks[0]['loss']:.6f} sharded vs "
+        f"{e['loss_one_rank']:.6f} one rank (rel {loss_err:.2e}); "
+        f"{len(e['grads'])} gradient leaves, worst |sharded - one rank| / "
+        f"max {max(d for _, d, _, _ in e['grads']):.3e} (TOL {tol}); "
+        f"{held} leaves past TOL held against the float32 gradient "
+        f"(|sharded - f32| <= |one rank - f32| + TOL)"
+        + (f", failing: {bad[:4]}" if bad else ""))
+    # (d) memory
+    args_b = mem["argument_size_in_bytes"]
+    pred_peak = args_b + mem["temp_size_in_bytes"]
+    # memory_allocated counts the allocator's blocks (``_alloc_bytes``:
+    # its 512-byte rounding, and the 2 MiB segments of shards past 10
+    # MiB); its requested bytes are the tensors' own
+    ok_d = all(r["args_exact"] == args_b and r["args_requested"] == args_b
+               and r["args_grown"] == r["args_booked"] for r in ranks)
+    for i, r in enumerate(ranks):
+        log(f"{tag} (d) rank {i}: argument bytes {r['args_exact']} (dry run "
+            f"{args_b}); the allocator's requested bytes grew by "
+            f"{r['args_requested']}, memory_allocated by {r['args_grown']} "
+            f"(booked {r['args_booked']}: {ALLOC_ROUND}-byte blocks, 2 MiB "
+            f"segments past 10 MiB); "
+            f"max_memory_allocated over the step {r['peak'] / 2**30:.3f} "
+            f"GiB vs predicted per-device peak {pred_peak / 2**30:.3f} GiB "
+            f"(ratio {r['peak'] / pred_peak:.3f})")
+    # (e) ms and bytes
+    ok_e = True
+    for kind, key in (("prefill", "prefill_bytes"),
+                      ("decode", "decode_step_bytes"),
+                      ("train", "train_bytes")):
+        want = {k: v for k, v in traced[kind].items() if k != "total"}
+        for i, r in enumerate(ranks):
+            if r[key] != want:
+                ok_e = False
+                log(f"{tag} (e) rank {i} {kind}: handed {r[key]} != "
+                    f"traced_lm {want}")
+        same = all(r[key] == want for r in ranks)
+        log(f"{tag} (e) {kind}: each rank handed the collectives "
+            f"{ranks[0][key]}, traced_lm's count "
+            f"{'equal on every rank' if same else 'DIFFERS'}")
+    r0 = ranks[0]
+    log(f"{tag} (e) ms on rank 0 (host clock): prefill {r0['prefill_ms']:.1f}"
+        f", decode steps {', '.join(f'{x:.1f}' for x in r0['decode_ms'])}, "
+        f"training step {r0['train_ms']:.1f} (loss and gradients "
+        f"{r0['grads_ms']:.1f}, AdamW the rest); {smi}")
+    fa = [r["launches"]["flash_attention"] for r in ranks]
+    log(f"{tag} (e) flash_attention launches on local heads per rank {fa}")
+    if min(fa) <= 0:
+        fail(f"{tag} flash_attention never launched on a rank")
+    if not all(r["train_loss_finite"] for r in ranks):
+        fail(f"{tag} the training step's loss is not finite")
+    for name, ok in (("a", ok_a), ("b", ok_b), ("c", ok_c), ("d", ok_d),
+                     ("e", ok_e)):
+        if not ok:
+            fail(f"{tag} ({name}) failed")
+    log(f"[spmd] phase 11 in {time.time() - t_phase:.1f} s")
+    return {"flash_attention": sum(fa)}
+
+
 # --------------------------------------------------------------- main
 def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke test of the PyTorch/"
                                  "CUDA port on one GPU (see the module "
                                  "docstring).")
-    ap.add_argument("--phase", choices=("dist",),
-                    help="run phases 1, 2 and this one alone, at its uncut "
-                    "sizes, and print no result lines")
+    ap.add_argument("--phase", choices=("dist", "spmd"),
+                    help="run phases 1, 2 and this one alone (dist at its "
+                    "uncut sizes), and print no result lines")
     opts = ap.parse_args()
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke FAILED: src/repro_torch not found beside "
@@ -4220,8 +4628,11 @@ def main() -> int:
 
     smi = timed(phase_device)
     timed(phase_build)
-    if opts.phase == "dist":
-        timed(phase_dist, smi, "alone")
+    if opts.phase:
+        if opts.phase == "dist":
+            timed(phase_dist, smi, "alone")
+        else:
+            timed(phase_spmd, smi)
         log(f"[time] all phases: {time.time() - t_start:.1f} s")
         log(f"[summary] card: {smi}")
         return 0
@@ -4240,6 +4651,7 @@ def main() -> int:
     trained = timed(phase_train, smi)
     dist = timed(phase_dist, smi)
     dry = timed(phase_dryrun, smi)
+    spmd = timed(phase_spmd, smi)
     log(f"[time] all phases: {time.time() - t_start:.1f} s")
     all_steps = sum(steps.values())
     for name in ATTENTION:
@@ -4247,9 +4659,10 @@ def main() -> int:
         train = trained.get(name, 0)
         piped = dist.get(name, 0)
         dried = dry.get(name, 0)
+        sharded = spmd.get(name, 0)
         rows[name]["launches"] = (totals[name] + moe_launches[name] + mig
                                   + zoo_launches[name] + train + piped
-                                  + dried)
+                                  + dried + sharded)
         log(f"[summary] {name}: {rows[name]['launches']} launches: "
             f"{totals[name]} over {all_steps} engine steps of the "
             f"tinyllama-1.1b runs ({totals[name] / all_steps:.2f} per "
@@ -4257,7 +4670,8 @@ def main() -> int:
             f"over the migrate phase's three runs, {zoo_launches[name]} "
             f"over the zoo phase's runs, {train} over the training runs, "
             f"{piped} over the dist phase's pipeline ranks, {dried} over "
-            f"the dryrun phase's measured training steps")
+            f"the dryrun phase's measured training steps, {sharded} over "
+            f"the spmd phase's sharded steps")
     rows["gmm"]["launches"] = (moe_launches["gmm"] + trained["gmm"]
                                + dist["gmm"])
     log(f"[summary] gmm: {rows['gmm']['launches']} launches: "

@@ -3,7 +3,7 @@
 ``reduce-scatter``, ``all-to-all``, ``collective-permute``, ``total``,
 ``count``). The counterpart of ``repro.analysis.hlo``, which parses them
 out of XLA's optimized per-device module; the port has no such module, so
-they come from one of two places:
+they come from one of three places:
 
   traced   — ``collective_bytes(wire, calls)``: what one rank handed to
              ``dist.collectives`` (the ``wire_bytes`` / ``wire_calls``
@@ -11,10 +11,19 @@ they come from one of two places:
              ``all_reduce`` -> ``all-reduce``, ``all_to_all`` ->
              ``all-to-all``, ``ppermute`` -> ``collective-permute``. The
              GLB cells' bytes are these (``core.executor.lower_shardmap``).
+  traced   — ``traced_lm(cfg, shape, mesh)``: a language-model step run
+             per device on DTensors laid out by ``dist.sharding`` (the
+             counterpart of XLA's per-device module), on ``meta`` tensors
+             in a ``fake`` world as the dry run runs it, or on real ones;
+             every c10d functional collective that DTensor's sharding
+             propagation and the models issue on this rank
+             (``dist.collectives.CollectiveLog``: all-gather,
+             reduce-scatter, all-reduce, all-to-all), its input's bytes.
+             The language-model cells' bytes are these.
   reckoned — ``reckon_lm(cfg, kind, batch, seq, mesh)``: a language-model
              step's collectives worked out from the sharding rule
-             (``dist.sharding``), since the port's step is not partitioned
-             by a compiler and its models do not run on DTensors:
+             (``dist.sharding``), without a trace: the floor that the
+             traced bytes are held above:
              (a) in training, each parameter's float32 gradient is
                  all-reduced over the mesh axes its leaf is replicated on
                  (its local shard's bytes, one op a leaf);
@@ -34,8 +43,13 @@ they come from one of two places:
              not counted. In training, (b) and (c) count once for the
              forward pass, once for its dual in the backward pass
              (Megatron's f / g pair), and once more for the forward
-             recomputed under remat.
-             Not reckoned: what a partitioner would add for FSDP (the
+             recomputed under remat, except at a layer's last product
+             (the MLP's or the MoE's, Mamba2's ``out_proj`` where no
+             shared block follows): its output feeds only the residual
+             sum, whose gradient needs no saved value, so the recompute
+             stops before it (``torch.utils.checkpoint``'s early stop;
+             XLA drops the dead recompute alike).
+             Not reckoned: what a partitioner adds for FSDP (the
              all-gather of each weight sharded over ``data`` before use
              and the reduce-scatter of its gradient), the vocab-sharded
              embedding lookup and loss, and the sequence-sharded decode
@@ -43,6 +57,7 @@ they come from one of two places:
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -168,9 +183,10 @@ def reckon_lm(cfg, kind: str, batch: int, seq: int, mesh,
     es = torch.empty((), dtype=dt).element_size()
     rows = local_batch(cfg, kind, batch, mesh) * (1 if kind == "decode"
                                                   else seq)
-    passes = 1
+    fwd = 1
+    remat = kind == "train" and cfg.remat != "none"
     if kind == "train":
-        passes = 2 + (1 if cfg.remat != "none" else 0)
+        fwd = 2
     napps = cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else 1
     reduce, count = 0, 0
     for path, leaf in _leaves(pshapes):
@@ -182,14 +198,82 @@ def reckon_lm(cfg, kind: str, batch: int, seq: int, mesh,
                 count += 1
         if path[-2:] in ROW_PARALLEL and _axes_size(spec[0], sizes) > 1:  # (b)
             apps = napps if path[0] == "shared" else 1
+            last = path[-2] == "mlp" or (path[-2] == "mamba" and not (
+                cfg.family == "hybrid" and (path[1] + 1) % cfg.attn_every
+                == 0))
+            passes = fwd + (remat and not last)
             reduce += passes * apps * rows * cfg.d_model * es
             count += passes * apps
     if ep_applies(cfg, mesh):                                   # (c)
-        reduce += passes * cfg.n_layers * moe_ep_bytes(cfg, rows, mesh, dt)
+        reduce += fwd * cfg.n_layers * moe_ep_bytes(cfg, rows, mesh, dt)
         over_model, n_dp = _ep_axes(mesh)
-        count += passes * cfg.n_layers * (over_model + 3 * n_dp)
+        count += fwd * cfg.n_layers * (over_model + 3 * n_dp)
     return _finish({"all-reduce": reduce}, count)
 
 
+def traced_lm(cfg, shape, mesh, microbatches: int = 1, device="meta"):
+    """One step of the cell (``cfg``, ``shape``: train, prefill or
+    decode, the dry run's steps and arguments, ``configs.input_specs``
+    on ``device``) on ``mesh``, each leaf laid out by ``dist.sharding``
+    and the step run on this rank's shards under ``analysis.cost.trace``
+    and ``dist.collectives.CollectiveLog``. Returns {"coll": the bytes
+    handed to each collective under HLO's keys, with ``total`` and
+    ``count``, "cost": the trace's per-device FLOPs, bytes and peak,
+    "metrics": a training step's metrics}."""
+    from ..analysis.cost import trace
+    from ..configs import input_specs
+    from ..dist.collectives import CollectiveLog
+    from ..dist.sharding import (cache_axes, distribute_tree, opt_axes,
+                                 tree_shardings)
+    from ..models import init_lm
+    from ..train.optimizer import OptConfig, adamw_init
+    from ..train.trainer import (make_decode_step, make_prefill_step,
+                                 make_train_step)
+
+    def lay(tree, axes):
+        return distribute_tree(tree, tree_shardings(axes, tree, mesh))
+
+    def build(cfg):
+        """The cell's step and its arguments, laid out on ``mesh``."""
+        kind = shape.kind
+        batch = input_specs(cfg, shape, device=device)
+        if kind == "train":
+            params = init_lm(cfg, device=device, dtype=torch.float32)
+            paxes = param_axes(cfg, params)
+            return make_train_step(cfg, OptConfig(),
+                                   microbatches=microbatches), (
+                lay(params, paxes), lay(adamw_init(params),
+                                        opt_axes(paxes)),
+                lay(batch, batch_axes(cfg, kind)))
+        params = init_lm(cfg, device=device)
+        P = lay(params, param_axes(cfg, params))
+        b = lay(batch, batch_axes(cfg, kind))
+        if kind == "prefill":
+            return make_prefill_step(cfg, max_seq=shape.seq_len), (P, b)
+        return make_decode_step(cfg), (P, b["tokens"], b["cache"],
+                                       b["cache_len"])
+
+    kind = shape.kind
+    step, args = build(cfg)
+    with torch.set_grad_enabled(kind == "train"):
+        if device == "meta":
+            # DTensor's sharding propagation makes its example tensors as
+            # plain ops on its first sight of each op: run the step once
+            # on the first layers alone (every layer's ops are the same;
+            # the hybrid's first period reaches its shared block), so that
+            # the trace sees only the step's own ops
+            first = (cfg.attn_every if cfg.family == "hybrid" else 1)
+            warm, wargs = build(dataclasses.replace(
+                cfg, n_layers=min(first, cfg.n_layers)))
+            warm(*wargs)
+            del warm, wargs
+        with CollectiveLog() as log:
+            out, cost = trace(step, *args)
+    coll = _finish(dict(log.bytes), sum(log.count.values()))
+    metrics = out[2] if kind == "train" else {}
+    return {"coll": coll, "cost": cost, "metrics": metrics}
+
+
 __all__ = ["COLLECTIVES", "HLO_NAMES", "collective_bytes", "ep_applies",
-           "local_batch", "local_numel", "moe_ep_bytes", "reckon_lm"]
+           "local_batch", "local_numel", "moe_ep_bytes", "reckon_lm",
+           "traced_lm"]

@@ -23,6 +23,19 @@ per-process count by operation (``wire_bytes`` / ``reset_wire``): the
 executor's and the smoke script's wire budget per superstep; and one per
 tensor handed to a per-process count of calls (``wire_calls``), which the
 dry run reports beside the bytes (``analysis.comm``).
+
+DTensor's collectives (the models under ``dist.sharding``'s rules) are
+not these: sharding propagation issues PyTorch's functional collectives
+(``_c10d_functional``) itself. ``CollectiveLog`` is a dispatch mode that
+sees each of them as it is handed to c10d, on each rank's local tensors,
+and adds its input's bytes (the operand bytes XLA's HLO counts) to a
+count by the HLO collective's name. It is also where those collectives
+are staged: gloo (PyTorch 2.11 on the H100 machine) takes CUDA tensors
+for all_reduce, reduce_scatter_tensor and all_to_all_single but refuses
+all_gather_into_tensor, so on a gloo group an all-gather of a CUDA
+tensor is run on a copy in pinned host memory and its result copied
+back to the card (``STAGED``). DTensors on a CUDA mesh of gloo ranks run
+under this mode.
 """
 from __future__ import annotations
 
@@ -30,6 +43,7 @@ from typing import Dict, List, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+from torch.utils._python_dispatch import TorchDispatchMode
 
 OPS = ("all_gather", "all_to_all", "ppermute", "all_reduce")
 _wire: Dict[str, int] = dict.fromkeys(OPS, 0)
@@ -162,3 +176,89 @@ def pmean(x: torch.Tensor, group) -> torch.Tensor:
 
 
 REDUCE = {"sum": psum, "max": pmax, "min": pmin}
+
+
+# ---------------------------------------------- DTensor's collectives
+# c10d functional op -> the HLO collective it is
+FUNCTIONAL = {
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_reduce": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "all_to_all_single": "all-to-all",
+}
+_NAMESPACES = ("_c10d_functional", "c10d_functional")
+# what gloo refuses on CUDA tensors (checked on the H100 machine)
+STAGED = ("all_gather_into_tensor", "all_gather_into_tensor_coalesced")
+
+
+def _functional_name(func):
+    ns, _, name = func._schema.name.partition("::")
+    return name if ns in _NAMESPACES and name in FUNCTIONAL else None
+
+
+def _needs_stage(name: str, inputs, group_name) -> bool:
+    """Whether this functional collective must go through host memory:
+    one of ``STAGED`` on CUDA tensors of a gloo group."""
+    if name not in STAGED or inputs[0].device.type != "cuda":
+        return False
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    return _staged(_resolve_process_group(group_name))
+
+
+def _host_copy(t: torch.Tensor) -> torch.Tensor:
+    out = torch.empty(t.shape, dtype=t.dtype,
+                      pin_memory=torch.cuda.is_available())
+    out.copy_(t)
+    return out
+
+
+def _run_staged(func, args, kwargs, device):
+    """``func`` (an all-gather) on host copies of its inputs, waited for,
+    its output(s) copied back to ``device``."""
+    inp = args[0]
+    host = ([_host_copy(t) for t in inp] if isinstance(inp, (list, tuple))
+            else _host_copy(inp))
+    out = func(host, *args[1:], **kwargs)
+    wait = torch.ops._c10d_functional.wait_tensor
+    if isinstance(out, (list, tuple)):
+        return [wait(o).to(device) for o in out]
+    return wait(out).to(device)
+
+
+class CollectiveLog(TorchDispatchMode):
+    """While active, counts every c10d functional collective this process
+    issues: ``bytes`` (HLO name -> the input bytes handed over, a
+    coalesced op's every input) and ``count`` (HLO name -> ops).
+
+    A DTensor op is passed on to DTensor's own dispatch (so that the mode
+    sees the local ops and collectives it issues); the fake tensors of
+    DTensor's sharding propagation pass through uncounted."""
+
+    def __init__(self):
+        super().__init__()
+        self.bytes: Dict[str, int] = {}
+        self.count: Dict[str, int] = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+
+        kwargs = kwargs or {}
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        name = _functional_name(func)
+        if name is not None and all(t in (torch.Tensor,
+                                          torch.nn.Parameter)
+                                    for t in types):
+            inp = args[0]
+            ins = list(inp) if isinstance(inp, (list, tuple)) else [inp]
+            hlo = FUNCTIONAL[name]
+            self.bytes[hlo] = self.bytes.get(hlo, 0) + sum(
+                t.numel() * t.element_size() for t in ins)
+            self.count[hlo] = self.count.get(hlo, 0) + 1
+            if _needs_stage(name, ins, args[-1]):
+                return _run_staged(func, args, kwargs, ins[0].device)
+        return func(*args, **kwargs)

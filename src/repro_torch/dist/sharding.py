@@ -40,7 +40,9 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Tuple
 
-from torch.distributed.tensor import DTensor, Replicate, Shard
+import torch
+from torch.distributed.tensor import (DTensor, Partial, Placement,
+                                      Replicate, Shard)
 
 Axes = Tuple[str, ...]
 
@@ -282,14 +284,172 @@ def cache_axes(cfg) -> Any:
     return axes
 
 
+# ------------------------------------------------------------- layouts
+def local_shard(t, mesh, placements_):
+    """This rank's shard of the full tensor ``t`` under ``placements_``
+    on ``mesh`` (a view: no copy, no communication). Mesh dims split in
+    order, the outer first, as ``distribute_tensor`` splits them."""
+    coord = mesh.get_coordinate()
+    for md, pl in enumerate(placements_):
+        if isinstance(pl, Shard):
+            n = mesh.size(md)
+            step = t.shape[pl.dim] // n
+            t = t.narrow(pl.dim, coord[md] * step, step)
+    return t
+
+
+def distribute_leaf(t, sh: LeafSharding):
+    """The full tensor ``t`` (on any device, the same on every rank) laid
+    out by ``sh``: each rank keeps a contiguous copy of its own shard, on
+    ``t``'s device, and nothing is sent (the counterpart of ``jax.
+    device_put`` with a ``NamedSharding``)."""
+    local = local_shard(t.detach(), sh.mesh, sh.placements).clone(
+        memory_format=torch.contiguous_format)
+    return DTensor.from_local(local, sh.mesh, sh.placements,
+                              run_check=False, shape=t.shape,
+                              stride=t.contiguous().stride())
+
+
+def distribute_tree(tree, shardings):
+    """``tree`` (dicts and lists of tensors) laid out leaf by leaf by
+    ``shardings``, a ``tree_shardings`` tree of the same structure."""
+    if isinstance(shardings, LeafSharding):
+        return distribute_leaf(tree, shardings)
+    if isinstance(shardings, dict):
+        return {k: distribute_tree(tree[k], v) for k, v in shardings.items()}
+    return [distribute_tree(t, s) for t, s in zip(tree, shardings,
+                                                  strict=True)]
+
+
+def sharded_zeros(shape, dtype, axes: Axes, mesh, device):
+    """Zeros of ``shape`` laid out by the logical ``axes`` on ``mesh``, as
+    a DTensor: each rank allocates only its own shard, on ``device``
+    (no tensor of the full shape is made, not even on ``meta``)."""
+    shape = tuple(shape)
+    pls = placements(spec_for(shape, axes, mesh), mesh)
+    local = list(shape)
+    for md, p in enumerate(pls):
+        if isinstance(p, Shard):
+            local[p.dim] //= mesh.size(md)
+    stride, n = [], 1
+    for d in reversed(shape):
+        stride.insert(0, n)
+        n *= d
+    return DTensor.from_local(
+        torch.zeros(local, dtype=dtype, device=device), mesh, pls,
+        run_check=False, shape=torch.Size(shape), stride=tuple(stride))
+
+
+def full_tree(tree):
+    """The inverse of ``distribute_tree``: every DTensor leaf gathered into
+    its full tensor (a collective on every rank); other leaves as they
+    are."""
+    if isinstance(tree, DTensor):
+        return tree.full_tensor()
+    if isinstance(tree, dict):
+        return {k: full_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(full_tree(v) for v in tree)
+    return tree
+
+
+def like(x, t):
+    """``t``, a plain tensor every rank makes alike, as a DTensor
+    replicated on ``x``'s mesh when ``x`` is a DTensor; else ``t``. The
+    models build their constants (RoPE angles, positions, zero states)
+    through this, so that no plain tensor meets a DTensor."""
+    if not isinstance(x, DTensor) or isinstance(t, DTensor):
+        return t
+    mesh = x.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def local_call(fn, out_placements, *args, mesh=None):
+    """``fn`` on the local shards of the DTensor arguments (other
+    arguments as they are), its outputs (one tensor or a tuple) made
+    DTensors with ``out_placements`` (one placement tuple per output, or
+    None for an output that is not a tensor) on the arguments' mesh.
+    Differentiable: ``to_local`` and ``from_local`` carry the gradients
+    with the placements stated. The caller states placements under which
+    ``fn`` of the shards is the shard of ``fn`` (heads, batch: work that
+    is embarrassingly parallel), or ``Partial`` where it is a sum. On a
+    mesh dim where the work is split (an output is not replicated there),
+    an input replicated there gets its gradient as a ``Partial`` sum:
+    each rank's part comes from its own share of the work."""
+    if mesh is None:
+        mesh = next(a.device_mesh for a in args if isinstance(a, DTensor))
+    single = out_placements is None or isinstance(out_placements[0],
+                                                  Placement)
+    pls = (out_placements,) if single else out_placements
+    split = {md for pl in pls if pl is not None
+             for md, p in enumerate(pl) if not isinstance(p, Replicate)}
+
+    def local(a):
+        if not isinstance(a, DTensor):
+            return a
+        return a.to_local(grad_placements=[
+            Partial() if md in split and isinstance(p, Replicate) else p
+            for md, p in enumerate(a.placements)])
+
+    out = fn(*(local(a) for a in args))
+    outs = (out,) if single else out
+    wrapped = tuple(
+        o if pl is None else DTensor.from_local(o, mesh, pl,
+                                                run_check=False)
+        for o, pl in zip(outs, pls, strict=True))
+    return wrapped[0] if single else wrapped
+
+
+def _sum_partial(x):
+    if not any(p.is_partial() for p in x.placements):
+        return x
+    return x.redistribute(x.device_mesh, [
+        Replicate() if p.is_partial() else p for p in x.placements])
+
+
+class _Reduced(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return _sum_partial(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_partial(g)
+
+
+def reduced(x):
+    """A DTensor's partial sums summed (an all-reduce over the mesh dims
+    where it is ``Partial``), its shards kept, and so its gradient's in
+    the backward pass (Megatron's f and g); a plain tensor as is. The
+    models reduce the residual stream's inputs and a norm's input so:
+    left to itself, sharding propagation carries a partial sum through a
+    norm's scaling or a residual sum and then gathers the next product's
+    weight whole, or the batch of its gradient."""
+    if not isinstance(x, DTensor):
+        return x
+    return _Reduced.apply(x)
+
+
+def replicated(x):
+    """A DTensor replicated on every dim of its mesh (an all-gather of its
+    shards, an all-reduce of its partial sums); a plain tensor as is."""
+    if not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    return x.redistribute(mesh, [Replicate()] * mesh.ndim)
+
+
 # ----------------------------------------------------------- activations
 def shard_act(x, *axes: str):
-    """A sharding constraint resolved through the rule engine.
+    """A sharding constraint resolved through the rule engine, at the
+    JAX package's sites (q, k and v, the residual stream after every
+    block, the MoE's expert slot buffers).
 
-    A plain tensor comes back unchanged (JAX's no-op outside a mesh: no
-    model code of the port calls this). A ``DTensor`` is redistributed to
-    the placements ``axes`` resolve to on its own mesh; a typo'd logical
-    axis or a rank mismatch raises, as JAX's inside a mesh."""
+    A plain tensor comes back unchanged (JAX's no-op outside a mesh). A
+    ``DTensor`` is redistributed to the placements ``axes`` resolve to on
+    its own mesh; a typo'd logical axis or a rank mismatch raises, as
+    JAX's inside a mesh."""
     if not isinstance(x, DTensor):
         return x
     mesh = x.device_mesh
@@ -298,5 +458,7 @@ def shard_act(x, *axes: str):
 
 
 __all__ = ["LOGICAL_AXIS_RULES", "LeafSharding", "batch_axes", "cache_axes",
-           "mesh_shape", "opt_axes", "param_axes", "placements",
-           "shard_act", "spec_for", "tree_shardings", "tree_specs"]
+           "distribute_leaf", "distribute_tree", "full_tree", "like",
+           "local_call", "local_shard", "mesh_shape", "opt_axes",
+           "param_axes", "placements", "reduced", "replicated", "shard_act",
+           "sharded_zeros", "spec_for", "tree_shardings", "tree_specs"]

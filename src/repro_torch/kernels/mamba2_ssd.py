@@ -42,7 +42,8 @@ def ssd_ref(x, dt, A, B, C, h0=None):
     N = B.shape[-1]
     xf, dtf, Bf, Cf, Af = x.float(), dt.float(), B.float(), C.float(), \
         A.float()
-    h = (torch.zeros((Bt, H, N, P), dtype=torch.float32, device=x.device)
+    # the zero state takes x's type (a DTensor on x's mesh, replicated)
+    h = (x.new_zeros((Bt, H, N, P), dtype=torch.float32)
          if h0 is None else h0.float())
     ys = []
     for t in range(T):
@@ -76,9 +77,8 @@ def ssd_chunked_ref(x, dt, A, B, C, chunk: int = 256):
     Bf = B.float().reshape(Bt, nck, L, N)
     Cf = C.float().reshape(Bt, nck, L, N)
     Af = A.float()
-    tri = torch.tril(torch.ones((L, L), dtype=torch.float32,
-                                device=x.device))
-    h = torch.zeros((Bt, H, N, P), dtype=torch.float32, device=x.device)
+    tri = torch.tril(x.new_ones((L, L), dtype=torch.float32))
+    h = x.new_zeros((Bt, H, N, P), dtype=torch.float32)
     ys = []
     for c in range(nck):
         xc, dtc, Bc, Cc = xf[:, c], dtf[:, c], Bf[:, c], Cf[:, c]

@@ -13,11 +13,17 @@ Nothing compiles and no card is used. The meshes are
 ranks in this one process (a backend that moves no data), torn down
 between the two sizes. A language-model cell builds its parameters,
 optimizer state, batch and cache on the ``meta`` device, lays each leaf
-out by ``dist.sharding`` and runs the step once on the global batch under
-``analysis.cost.trace`` (seconds to minutes a cell on a host). Its
-collective bytes are reckoned from the sharding rule
-(``analysis.comm.reckon_lm``; the port's models do not run on DTensors,
-so no per-device program is traced); a GLB cell runs one superstep of
+out on the mesh as DTensors (``dist.sharding.distribute_tree``) and runs
+the step once, per device: rank 0's program, as XLA's per-device module
+is. ``analysis.cost.trace`` counts its local ops (FLOPs, unfused bytes,
+peak) and ``dist.collectives.CollectiveLog`` the collectives DTensor
+issues (``analysis.comm.traced_lm``); ``analysis.comm.reckon_lm``'s
+formula is kept beside them as their floor. The trace runs every layer
+(an eager trace unrolls what XLA's scan sees once), at full depth: the
+FLOPs, bytes and collectives of a homogeneous stack are linear in depth,
+as JAX's ``analyze_cost`` extrapolates them, but the peak is not (at one
+or two layers it sits at the loss, at full depth at the end of the
+backward pass among the gradients). A GLB cell runs one superstep of
 rank 0's place on the CPU (``core.lower_shardmap``) and its bytes are
 traced.
 
@@ -46,18 +52,15 @@ import torch.distributed as dist
 from torch.utils._pytree import tree_flatten
 
 from repro_torch.analysis import roofline as rl
-from repro_torch.analysis.comm import local_numel, reckon_lm
-from repro_torch.analysis.cost import trace
+from repro_torch.analysis.comm import local_numel, reckon_lm, traced_lm
 from repro_torch.configs import (ARCHS, SHAPES, cell_applicable, get_config,
                                  input_specs)
 from repro_torch.dist.sharding import (batch_axes, cache_axes, mesh_shape,
                                        opt_axes, param_axes, tree_specs)
 from repro_torch.launch.mesh import make_glb_mesh, make_production_mesh
-from repro_torch.models import init_lm
+from repro_torch.models import init_lm, make_cache
 from repro_torch.models.config import ShapeConfig
-from repro_torch.train.optimizer import OptConfig, adamw_init
-from repro_torch.train.trainer import (make_decode_step, make_prefill_step,
-                                       make_train_step)
+from repro_torch.train.optimizer import adamw_init
 
 GLB_CELLS = ("uts_glb", "bc_glb")
 SHAPE_NAMES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
@@ -74,19 +77,13 @@ def _cell_cfg(cfg, shape):
     """Per-cell impl overrides, JAX's: train and prefill take the chunked
     attention (and the chunk-matmul SSD), so that the program's memory is
     bounded; decode the plain masked full-cache path. REPRO_MOE_IMPL
-    chooses the MoE dispatch whose collectives are reckoned."""
+    chooses the MoE dispatch (``auto``: expert-parallel on the mesh, as
+    JAX's reads its ambient mesh)."""
     impl = "chunked" if shape.kind in ("train", "prefill") else "ref"
     kw = dict(attn_impl=impl, moe_impl=MOE_IMPL)
     if REMAT:
         kw["remat"] = REMAT
     return dataclasses.replace(cfg, **kw)
-
-
-def _traced_cfg(cfg):
-    """What runs on ``meta``: the plain versions of the kernels, which
-    have the kernels' FLOPs (a kernel wrapper refuses a meta tensor), and
-    the global MoE dispatch (no mesh is handed to the model)."""
-    return dataclasses.replace(cfg, decode_impl="ref", moe_impl="ref")
 
 
 # --------------------------------------------------------------- worlds
@@ -133,43 +130,37 @@ def local_bytes(axes_tree, tree, mesh) -> int:
 
 @dataclasses.dataclass
 class LMTrace:
-    """A language-model cell's step, traced once on the global batch (the
-    same for both meshes)."""
+    """A language-model cell's step on one mesh: the argument trees
+    (``meta``, global shapes), and the per-device cost and collectives
+    of its trace."""
     cfg: Any
     shape: ShapeConfig
     params: Any
     opt: Optional[Dict[str, Any]]
     batch: Dict[str, Any]
-    out: Any
+    metrics: Dict[str, Any]
     cost: Dict[str, float]
+    coll: Dict[str, int]
     seconds: float
 
 
-def trace_lm(cfg, shape: ShapeConfig) -> LMTrace:
-    """Build the cell's arguments on ``meta`` and run its step once under
-    ``analysis.cost.trace``. Training runs ``make_train_step`` (float32
-    masters, AdamW) on ``input_specs``; prefill ``make_prefill_step``;
-    decode ``make_decode_step`` against the cache of ``input_specs``."""
-    t0 = time.time()
-    tcfg = _traced_cfg(cfg)
-    batch = input_specs(tcfg, shape)
+def _args(cfg, shape):
+    """The cell's arguments on ``meta``: float32 masters and AdamW state
+    for training, the serving weights otherwise, and ``input_specs``."""
+    batch = input_specs(cfg, shape)
     if shape.kind == "train":
-        params = init_lm(tcfg, device="meta", dtype=torch.float32)
-        opt = adamw_init(params)
-        step = make_train_step(tcfg, OptConfig(), microbatches=MICROBATCH)
-        out, cost = trace(step, params, opt, batch)
-    else:
-        params, opt = init_lm(tcfg, device="meta"), None
-        with torch.no_grad():
-            if shape.kind == "prefill":
-                step = make_prefill_step(tcfg, max_seq=shape.seq_len)
-                out, cost = trace(step, params, batch)
-            else:
-                out, cost = trace(make_decode_step(tcfg), params,
-                                  batch["tokens"], batch["cache"],
-                                  batch["cache_len"])
-    return LMTrace(cfg, shape, params, opt, batch, out, cost,
-                   time.time() - t0)
+        params = init_lm(cfg, device="meta", dtype=torch.float32)
+        return params, adamw_init(params), batch
+    return init_lm(cfg, device="meta"), None, batch
+
+
+def trace_lm(cfg, shape: ShapeConfig, mesh) -> LMTrace:
+    """The cell's step on ``mesh``, per device (``traced_lm``)."""
+    t0 = time.time()
+    run = traced_lm(cfg, shape, mesh, microbatches=MICROBATCH)
+    params, opt, batch = _args(cfg, shape)
+    return LMTrace(cfg, shape, params, opt, batch, run["metrics"],
+                   run["cost"], run["coll"], time.time() - t0)
 
 
 def lm_memory(tr: LMTrace, mesh) -> Dict[str, int]:
@@ -178,27 +169,30 @@ def lm_memory(tr: LMTrace, mesh) -> Dict[str, int]:
     (train: params, optimizer state and the replicated metrics; prefill
     and decode: the next tokens and the cache), aliased (the donated
     params and optimizer state in training, the cache in decode), and
-    temp (the traced peak on the global batch over the chips)."""
+    temp (the per-device trace's peak)."""
     cfg, kind = tr.cfg, tr.shape.kind
-    chips = mesh.size()
     paxes = param_axes(cfg, tr.params)
     params = local_bytes(paxes, tr.params, mesh)
     opt = local_bytes(opt_axes(paxes), tr.opt, mesh) if tr.opt else 0
     args = params + opt + local_bytes(batch_axes(cfg, kind), tr.batch, mesh)
     if kind == "train":
         metrics = sum(v.numel() * v.element_size()
-                      for v in tr.out[2].values())
+                      for v in tr.metrics.values())
         out, alias = params + opt + metrics, params + opt
     else:
-        tok, cache = tr.out
+        B, S = tr.shape.global_batch, tr.shape.seq_len
+        tok = torch.empty((B, 1) + ((cfg.n_codebooks,) if cfg.n_codebooks
+                                    else ()), dtype=torch.int64,
+                          device="meta")
+        cache = make_cache(cfg, B, S, device="meta")
         tok_axes = ("batch",) + ("none",) * (tok.dim() - 1)
         cbytes = local_bytes(cache_axes(cfg), cache, mesh)
         out = local_bytes(tok_axes, tok, mesh) + cbytes
         alias = cbytes if kind == "decode" else 0
     return {"argument_size_in_bytes": args, "output_size_in_bytes": out,
             "alias_size_in_bytes": alias,
-            "temp_size_in_bytes": int(tr.cost["peak_bytes"] // chips),
-            "temp_basis": "global/chips"}
+            "temp_size_in_bytes": int(tr.cost["peak_bytes"]),
+            "temp_basis": "per-device trace"}
 
 
 def _full_bytes(*trees) -> int:
@@ -208,24 +202,27 @@ def _full_bytes(*trees) -> int:
 
 def lm_record(tr: LMTrace, mesh) -> Dict[str, Any]:
     """Everything of a language-model cell's record but its labels.
-    Besides JAX's keys: ``global_bytes``, the whole step's arguments
-    (unsharded) and traced peak, and ``min_cards``, how many cards of
-    ``HBM_BYTES`` their sum needs at the least (an even split, nothing
-    replicated)."""
+    Besides JAX's keys: ``collective_floor``, the reckoned floor of the
+    collective bytes (``reckon_lm``'s total), ``global_bytes``, the whole
+    step's arguments (unsharded) and the per-device peak times the chips,
+    and ``min_cards``, how many cards of ``HBM_BYTES`` their sum needs at
+    the least (an even split, nothing replicated)."""
     chips = mesh.size()
     gbytes = {"arguments": _full_bytes(tr.params, tr.opt or {}, tr.batch),
-              "temp": int(tr.cost["peak_bytes"])}
-    coll = reckon_lm(tr.cfg, tr.shape.kind, tr.shape.global_batch,
-                     tr.shape.seq_len, mesh, pshapes=tr.params)
-    cost = {"flops_per_dev": tr.cost["flops"] / chips,
-            "bytes_per_dev": tr.cost["bytes"] / chips}
+              "temp": int(tr.cost["peak_bytes"]) * chips}
+    floor = reckon_lm(tr.cfg, tr.shape.kind, tr.shape.global_batch,
+                      tr.shape.seq_len, mesh, pshapes=tr.params)["total"]
+    cost = {"flops_per_dev": tr.cost["flops"],
+            "bytes_per_dev": tr.cost["bytes"]}
     mflops = rl.model_flops(tr.cfg, tr.shape)
     roof = rl.build({"flops": cost["flops_per_dev"],
-                     "bytes": cost["bytes_per_dev"]}, coll, chips, mflops)
+                     "bytes": cost["bytes_per_dev"]}, tr.coll, chips,
+                    mflops)
     return dict(chips=chips, mesh=mesh_shape(mesh),
                 trace_s=round(tr.seconds, 1),
                 memory_analysis=lm_memory(tr, mesh),
-                collective_bytes=coll, collective_basis="reckoned",
+                collective_bytes=tr.coll, collective_basis="traced",
+                collective_floor=floor,
                 cost=cost, model_flops=mflops, roofline=roof.row(),
                 global_bytes=gbytes, min_cards=math.ceil(
                     sum(gbytes.values()) / rl.HBM_BYTES),
@@ -279,8 +276,7 @@ def glb_record(which: str, mesh) -> Dict[str, Any]:
 def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
              traces: Optional[Dict[tuple, LMTrace]] = None):
     """One cell's record, written to ``out_dir`` and returned. ``traces``
-    keeps the last language-model trace, which the cell's other mesh
-    reuses (the trace is of the global step)."""
+    (when given) receives the language-model cell's trace."""
     traces = {} if traces is None else traces
     label = f"{arch}/{shape_name}/{'multipod' if multi_pod else 'pod'}"
     rec: Dict[str, Any] = {"arch": arch, "shape": shape_name,
@@ -296,13 +292,12 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
             if not ok:
                 rec.update(status="skipped", reason=why)
                 return _save(rec, out_dir, label)
-            key = (arch, shape_name)
-            if key not in traces:
-                traces.clear()
-                traces[key] = trace_lm(_cell_cfg(cfg0, shape), shape)
             fake_world(512 if multi_pod else 256)
             mesh = make_production_mesh(multi_pod=multi_pod,
                                         device_type="cpu")
+            key = (arch, shape_name, multi_pod)
+            traces.clear()
+            traces[key] = trace_lm(_cell_cfg(cfg0, shape), shape, mesh)
             rec.update(status="ok", **lm_record(traces[key], mesh))
     except Exception as e:  # noqa: BLE001
         rec.update(status="error", error=repr(e),
@@ -347,11 +342,10 @@ def main(argv=None):
     cells = all_cells() if args.all else [(args.arch, args.shape)]
     if not args.all and not args.arch:
         ap.error("--arch required without --all")
-    traces: Dict[tuple, LMTrace] = {}
     try:
         for arch, shape in cells:
             for mp in meshes:
-                run_cell(arch, shape, mp, args.out, traces)
+                run_cell(arch, shape, mp, args.out)
     finally:
         close_world()
 

@@ -21,17 +21,31 @@ contiguous decode writes an idle slot's old value back to its own row,
 and paged writes go to the pool's sink block (index ``num_blocks``, see
 ``transformer.make_paged_cache``), which no table points at and no kernel
 reads.
+
+On DTensors (the models under ``dist.sharding``'s rules) q, k and v are
+constrained to ``("batch", "seq", "heads", "none")`` at the JAX
+package's sites, and the attention runs on each rank's batch rows and
+heads (``ops.attention``: the kernel on a CUDA mesh). A contiguous cache
+is then a DTensor laid out by ``dist.sharding.cache_axes`` (its sequence
+over ``model``): prefill writes each rank's slice of the prompt's k/v
+into its own slice of the cache, decode writes the new token on the rank
+whose slice holds its position and attends through ``ops.
+decode_sharded``, the masked full-cache path of JAX's decode cells. The
+paged pools are not sharded.
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from repro_torch.dist.sharding import like, local_call, shard_act
 from repro_torch.kernels import ops
 
 from .config import ModelConfig
-from .layers import apply_mrope, apply_rope, dense_init
+from .layers import (apply_mrope, apply_rope, dense_init, merge_heads,
+                     split_heads)
 
 
 def attn_init(cfg: ModelConfig, generator, device, dtype):
@@ -90,10 +104,19 @@ def attn_fwd(
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
-    q = _rope(cfg, q.view(B, S, Hq, hd), positions)
-    k = _rope(cfg, k.view(B, S, Hkv, hd), positions)
-    v = v.view(B, S, Hkv, hd)
+    q = shard_act(split_heads(q, Hq, hd), "batch", "seq", "heads", "none")
+    k = shard_act(split_heads(k, Hkv, hd), "batch", "seq", "heads", "none")
+    v = shard_act(split_heads(v, Hkv, hd), "batch", "seq", "heads", "none")
+    q = _rope(cfg, q, positions)
+    k = _rope(cfg, k, positions)
 
+    if isinstance(x, DTensor) and cache is not None:
+        if block_tables is not None:
+            raise NotImplementedError(
+                "paged caches on DTensors: the paged engine is not sharded "
+                "(nor is the reference's)")
+        o = _sharded_cache_attn(cfg, q, k, v, cache, cache_len, mode)
+        return merge_heads(o) @ p["wo"], cache
     if mode == "decode":
         assert cache is not None and S == 1
         # cache_len: scalar or (B,) per-slot lengths, -1 marking idle
@@ -159,5 +182,58 @@ def attn_fwd(
             cache["k"][:, off:off + S] = k.to(cache["k"].dtype)
             cache["v"][:, off:off + S] = v.to(cache["v"].dtype)
             new_cache = cache
-    y = o.reshape(B, S, Hq * hd) @ p["wo"]
+    y = merge_heads(o) @ p["wo"]
     return y, new_cache
+
+
+def _write_slice(cache, new, start, lens=None):
+    """Write ``new`` (B, S, Hkv, hd) into the DTensor ``cache`` (B, S_max,
+    Hkv, hd) at sequence rows [start, start + S), in place, each rank
+    into its own slice of the cache; with ``lens`` ((B,) i32, S == 1),
+    row b at position lens[b] instead, -1 (an idle slot) writing
+    nothing."""
+    mesh = cache.device_mesh
+    pls = [Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+           for p in cache.placements]
+    new = new.to(cache.dtype).redistribute(mesh, pls)
+    off = ops.shard_offset(cache, 1)
+    if lens is not None:
+        lens = lens.redistribute(mesh, [
+            p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+            for p in cache.placements])
+
+    def write(c, n, lens):
+        Sl = c.shape[1]
+        if lens is None:
+            lo, hi = max(start, off), min(start + n.shape[1], off + Sl)
+            if hi > lo:
+                c[:, lo - off:hi - off] = n[:, lo - start:hi - start]
+            return c
+        rel = lens.long() - off
+        live = (lens >= 0) & (rel >= 0) & (rel < Sl)
+        idx = torch.where(live, rel, 0)
+        brow = torch.arange(c.shape[0], device=c.device)
+        c[brow, idx] = torch.where(live[:, None, None], n[:, 0],
+                                   c[brow, idx])
+        return c
+
+    local_call(write, None, cache, new, lens)
+
+
+def _sharded_cache_attn(cfg, q, k, v, cache, cache_len, mode):
+    """Prefill into, or decode against, the contiguous DTensor cache
+    (one layer's view, updated in place); returns attention's output."""
+    ck, cv = cache["k"], cache["v"]
+    B = q.shape[0]
+    if mode == "decode":
+        lens = cache_len if isinstance(cache_len, DTensor) else like(
+            q, _as_lens(cache_len, B, q.device))
+        lens = lens.to(torch.int32).expand(B)
+        _write_slice(ck, k, 0, lens)
+        _write_slice(cv, v, 0, lens)
+        window = torch.where(lens >= 0, lens + 1, 0).to(torch.int32)
+        return ops.decode_sharded(q, ck, cv, window)
+    off = int(cache_len) if cache_len is not None else 0
+    _write_slice(ck, k, off)
+    _write_slice(cv, v, off)
+    return ops.attention(q, k, v, causal=True, impl=cfg.attn_impl)

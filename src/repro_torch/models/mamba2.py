@@ -20,11 +20,12 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import ops
 
 from .config import ModelConfig
-from .layers import dense_init, rmsnorm
+from .layers import dense_init, merge_heads, rmsnorm, split_heads
 
 CONV_KEYS = ("conv_x", "conv_B", "conv_C")
 STATE_KEYS = CONV_KEYS + ("ssm",)
@@ -98,7 +99,7 @@ def mamba_fwd(
     Bm = Bm.float()
     Cm = Cm.float()
 
-    xh = xi.reshape(B, S, nh, hp)
+    xh = split_heads(xi, nh, hp)
     if mode == "decode":
         # Single-step recurrence on the carried state.
         h0 = cache["ssm"].float()                       # (B, nh, ns, hp)
@@ -106,11 +107,16 @@ def mamba_fwd(
         dx = dt[:, 0, :, None] * xh[:, 0].float()
         upd = Bm[:, 0, None, :, None] * dx[:, :, None, :]
         new_ssm = h0 * a[:, :, None, None] + upd
-        y = torch.einsum("bn,bhnp->bhp", Cm[:, 0], new_ssm)[:, None]
+        if isinstance(new_ssm, DTensor):
+            # a sum over n, not an einsum: DTensor's einsum flattens
+            # (heads, head dim), which a head dim split alone cannot
+            y = (Cm[:, 0, None, :, None] * new_ssm).sum(2)[:, None]
+        else:
+            y = torch.einsum("bn,bhnp->bhp", Cm[:, 0], new_ssm)[:, None]
     else:
         y, new_ssm = ops.ssd(xh, dt, A, Bm, Cm, impl=cfg.attn_impl)
     y = y.to(dt_) + xh * p["D"].to(dt_)[None, None, :, None]
-    y = y.reshape(B, S, di)
+    y = merge_heads(y)
     # gated RMSNorm (mamba2): norm(y) * silu(z)
     y = rmsnorm(y, p["gate_norm"], cfg.norm_eps) * F.silu(z)
     out = y @ p["out_proj"]

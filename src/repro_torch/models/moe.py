@@ -27,6 +27,16 @@ divides ``n_experts``: data parallel over ``data`` (and ``pod``), each
 ``gmm`` kernel and the combine one ``psum`` over ``model``. ``auto`` takes
 ``ep`` when it is given such a mesh (JAX's ``auto`` reads the ambient
 mesh) and ``global`` otherwise.
+
+On DTensors (the models under ``dist.sharding``'s rules) the mesh is
+the activations' own, and ``auto`` makes JAX's choice on it. ``ep`` is
+``_moe_fwd_ep``'s local work on each rank's data shard and local experts
+(``dist.sharding.local_call``), its combine and statistics DTensor
+partial sums (so that autograd carries them). ``global`` is JAX's global
+dispatch: every rank routes the whole batch, the (E, cap, D) slot
+buffer is constrained to ``("expert", "batch", "none")`` at JAX's site
+and the expert products run on each rank's experts and slots, expert e's
+slot at row e * cap + pos as in JAX's buffer.
 """
 from __future__ import annotations
 
@@ -34,8 +44,10 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..dist import collectives as C
+from ..dist.sharding import local_call, replicated, shard_act
 from ..kernels import ops
 from .config import ModelConfig
 from .layers import dense_init
@@ -109,6 +121,10 @@ def moe_fwd(p, x, cfg: ModelConfig, expert_perm=None,
     if cfg.moe_impl not in MOE_IMPLS:
         raise ValueError(f"unknown moe_impl {cfg.moe_impl!r}; have "
                          f"{MOE_IMPLS}")
+    if isinstance(x, DTensor):
+        if _ep_mesh(cfg, x.device_mesh) is not None:
+            return _moe_fwd_ep_dt(p, x, cfg, expert_perm)
+        return _moe_fwd_global_dt(p, x, cfg, expert_perm)
     mesh = _ep_mesh(cfg, mesh)
     if mesh is not None:
         return _moe_fwd_ep(p, x, cfg, expert_perm, mesh)
@@ -119,15 +135,9 @@ def moe_fwd(p, x, cfg: ModelConfig, expert_perm=None,
     xt = x.reshape(T, D)
     probs, gate_vals, gate_idx = _route(p, xt, K, expert_perm)
 
-    # aux load-balance loss (Switch-style): E * sum_e f_e * p_e. The
-    # one-hot rows are made by a scatter: F.one_hot reads its input's
-    # range back to the host, a sync per layer.
     flat_idx = gate_idx.reshape(T * K, 1)
-    onehot = torch.zeros((T * K, E), dtype=torch.int32, device=x.device)
-    onehot.scatter_(1, flat_idx, 1)                               # (T*K, E)
+    onehot, counts, aux_loss = _balance(probs, flat_idx, E)
     n_routed = onehot.sum(0)                                      # (E,)
-    counts = n_routed.float()
-    aux_loss = E * (counts / (T * K) * probs.mean(0)).sum()
 
     # Capacity-bounded dispatch: the queue position of each routed (t, k)
     # slot within its expert, in (t, k) order over the whole batch (JAX's
@@ -147,7 +157,8 @@ def moe_fwd(p, x, cfg: ModelConfig, expert_perm=None,
     # K slots of every token: each kept row receives exactly one token)
     buf = torch.zeros((E * cap + 1, D), dtype=dt, device=x.device)
     buf.index_add_(0, dest, xt[:, None].expand(T, K, D).reshape(T * K, D))
-    # (JAX shards the buffers here with shard_act, a no-op on one device.)
+    # (JAX shards the slot buffers here with shard_act, a no-op on one
+    # device; ``_moe_fwd_global_dt`` does on a mesh.)
 
     rows = buf[:E * cap]
     impl = "ref" if cfg.moe_impl == "ref" else "auto"
@@ -156,16 +167,108 @@ def moe_fwd(p, x, cfg: ModelConfig, expert_perm=None,
     ye = torch.cat([mm(h, p["wo"]),
                     torch.zeros((1, D), dtype=dt, device=x.device)])
 
-    # combine: gather each (t, k) slot back, weighted by its gate, the K
-    # terms added one after another in dt
-    terms = (ye[dest] * gate_vals.reshape(T * K, 1).to(dt)).reshape(T, K, D)
-    y = terms[:, 0]
-    for kk in range(1, K):
-        y = y + terms[:, kk]
+    y = _combine(ye, dest, gate_vals, K)
     dropped = (~kept).sum().float()
     return y.reshape(B, S, D), {"aux_loss": aux_loss,
                                 "expert_counts": counts,
                                 "dropped": dropped, "capacity": cap}
+
+
+def _balance(probs, flat_idx, E: int):
+    """The aux load-balance loss (Switch-style), E * sum_e f_e * p_e, of
+    routing ``flat_idx`` (T*K, 1) with router probabilities ``probs``
+    (T, E). Returns (one-hot (T*K, E) int32, counts (E,) float32, loss).
+    The one-hot is a comparison with arange(E): no scatter, and no read
+    back to the host (F.one_hot reads its input's range, a sync per
+    layer)."""
+    onehot = (flat_idx == torch.arange(E, device=flat_idx.device)).to(
+        torch.int32)
+    counts = onehot.sum(0).float()
+    T_K = flat_idx.shape[0]
+    return onehot, counts, E * (counts / T_K * probs.mean(0)).sum()
+
+
+def _dispatch_global(xt, probs, gate_vals, gate_idx, cfg: ModelConfig):
+    """JAX's global dispatch of the whole batch xt (T, D) into its (E,
+    cap, D) slot buffer, expert e's kept slot at row e * cap + pos and
+    every dropped slot at the sentinel row E * cap. Returns (buffer,
+    destination (T*K,), counts, aux loss, drops)."""
+    T, D = xt.shape
+    E, K = cfg.n_experts, cfg.top_k
+    flat_idx = gate_idx.reshape(T * K, 1)
+    onehot, counts, aux_loss = _balance(probs, flat_idx, E)
+    cap = capacity(T, cfg)
+    pos = (torch.cumsum(onehot, 0) - onehot).gather(1, flat_idx)[:, 0]
+    kept = pos < cap
+    dest = torch.where(kept, flat_idx[:, 0] * cap + pos, E * cap)
+    buf = torch.zeros((E * cap + 1, D), dtype=xt.dtype, device=xt.device)
+    buf.index_add_(0, dest, xt[:, None].expand(T, K, D).reshape(T * K, D))
+    return (buf[:E * cap].reshape(E, cap, D), dest, counts, aux_loss,
+            (~kept).sum().float())
+
+
+def _combine(ye, dest, gate_vals, K: int):
+    """Each (t, k) slot's expert output gathered back from the rows ``ye``
+    (the sentinel zero row last), weighted by its gate, the K terms added
+    one after another in ye's dtype. Returns (T, D)."""
+    D = ye.shape[-1]
+    T = gate_vals.shape[0]
+    terms = (ye[dest] * gate_vals.reshape(T * K, 1).to(ye.dtype)).reshape(
+        T, K, D)
+    y = terms[:, 0]
+    for kk in range(1, K):
+        y = y + terms[:, kk]
+    return y
+
+
+def _expert_ffn(xe, wg, wi, wo, impl: str):
+    """The SwiGLU of each expert on its slots, xe (E, cap, D) with every
+    slot a row (empty ones zero), through ``ops.gmm`` with group sizes
+    [cap] * E. Returns (E, cap, D)."""
+    E, cap, D = xe.shape
+    rows = xe.reshape(E * cap, D)
+    sizes = torch.full((E,), cap, dtype=torch.int32, device=xe.device)
+    mm = lambda a, w: ops.gmm(a, w, sizes, impl=impl)
+    h = F.silu(mm(rows, wg)) * mm(rows, wi)
+    return mm(h, wo).reshape(E, cap, D)
+
+
+def _moe_fwd_global_dt(p, x, cfg: ModelConfig, expert_perm):
+    """The global dispatch on DTensors (see the module docstring)."""
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    mesh = x.device_mesh
+    R = (Replicate(),) * mesh.ndim
+
+    def route(xr, router):
+        xt = xr.reshape(B * S, D)
+        probs, gate_vals, gate_idx = _route({"router": router}, xt, K,
+                                            expert_perm)
+        return (gate_vals,) + _dispatch_global(xt, probs, gate_vals,
+                                               gate_idx, cfg)
+
+    gate_vals, xe, dest, counts, aux_loss, dropped = local_call(
+        route, (R,) * 6, replicated(x), replicated(p["router"]))
+    xe = shard_act(xe, "expert", "batch", "none")                # EP slots
+    wpl = [Shard(0) if isinstance(pl, Shard) and pl.dim == 0 else
+           Replicate() for pl in xe.placements]
+    w = [p[k].redistribute(mesh, wpl) for k in ("wg", "wi", "wo")]
+    impl = "ref" if cfg.moe_impl == "ref" else "auto"
+    ye = local_call(lambda xe, *w: _expert_ffn(xe, *w, impl),
+                    xe.placements, xe, *w)
+
+    def combine(ye, dest, gate_vals):
+        rows = torch.cat([ye.reshape(E * ye.shape[1], D),
+                          torch.zeros((1, D), dtype=ye.dtype,
+                                      device=ye.device)])
+        return _combine(rows, dest, gate_vals, K).reshape(B, S, D)
+
+    y = local_call(combine, R, replicated(ye), dest, gate_vals)
+    back = [pl if isinstance(pl, Shard) else Replicate()
+            for pl in x.placements]
+    return y.redistribute(mesh, back), {
+        "aux_loss": aux_loss, "expert_counts": counts, "dropped": dropped,
+        "capacity": capacity(B * S, cfg)}
 
 
 def _rank_within_expert(gate_idx_flat, E: int):
@@ -176,12 +279,15 @@ def _rank_within_expert(gate_idx_flat, E: int):
     n = gate_idx_flat.shape[0]
     dev = gate_idx_flat.device
     sorted_e, order = torch.sort(gate_idx_flat, stable=True)
-    starts = torch.searchsorted(
-        sorted_e, torch.arange(E, dtype=sorted_e.dtype, device=dev))
+    # each expert's run in the sorted order; its length is the count
+    # (bincount would size its output from the values: a host read)
+    bounds = torch.searchsorted(
+        sorted_e, torch.arange(E + 1, dtype=sorted_e.dtype, device=dev))
+    starts = bounds[:-1]
     rank_sorted = torch.arange(n, device=dev) - starts[sorted_e]
     pos = torch.zeros(n, dtype=torch.int64, device=dev)
     pos.scatter_(0, order, rank_sorted)
-    return pos, torch.bincount(gate_idx_flat, minlength=E)
+    return pos, bounds[1:] - starts
 
 
 def _moe_fwd_ep(p, x, cfg: ModelConfig, expert_perm, mesh):
@@ -205,48 +311,18 @@ def _moe_fwd_ep(p, x, cfg: ModelConfig, expert_perm, mesh):
     ``dropped`` are summed (``psum``) over them, one dimension after
     another."""
     Bl, Sl, D = x.shape
-    E, K = cfg.n_experts, cfg.top_k
-    Tl = Bl * Sl
-    dt = x.dtype
-    dev = x.device
     dp = [mesh.get_group(a) for a in ("pod", "data")
           if a in mesh.mesh_dim_names]
     model = mesh.get_group("model")
-    E_loc = E // C.size(model)
+    E_loc = cfg.n_experts // C.size(model)
     lo = C.rank(model) * E_loc
-    xt = x.reshape(Tl, D)
-    probs, gate_vals, gate_idx = _route(p, xt, K, expert_perm)
-
-    # routing stats from (T K,) vectors, no (T, K, E) one-hots
-    flat_e = gate_idx.reshape(Tl * K)
-    pos, counts = _rank_within_expert(flat_e, E)
-    counts = counts.float()
-    aux_loss = E * (counts / (Tl * K) * probs.mean(0)).sum()
-
-    cap = capacity(Tl, cfg)
-    kept = pos < cap
-    rel = flat_e - lo
-    mine = kept & (rel >= 0) & (rel < E_loc)
-    dest = torch.where(mine, rel * cap + pos, E_loc * cap)
-    buf = torch.zeros((E_loc * cap + 1, D), dtype=dt, device=dev)
-    buf.index_add_(0, dest, xt[:, None].expand(Tl, K, D).reshape(Tl * K, D))
-
-    rows = buf[:E_loc * cap]
-    sizes = torch.full((E_loc,), cap, dtype=torch.int32, device=dev)
-    w = {k: p[k][lo:lo + E_loc] for k in ("wg", "wi", "wo")}
-    mm = lambda a, wk: ops.gmm(a, w[wk], sizes)
-    h = F.silu(mm(rows, "wg")) * mm(rows, "wi")
-    ye = torch.cat([mm(h, "wo"), torch.zeros((1, D), dtype=dt, device=dev)])
-
-    terms = (ye[dest] * gate_vals.reshape(Tl * K, 1).to(dt)).reshape(Tl, K,
-                                                                     D)
-    y = terms[:, 0]
-    for kk in range(1, K):
-        y = y + terms[:, kk]
+    w = [p[k][lo:lo + E_loc] for k in ("wg", "wi", "wo")]
+    y, aux_loss, counts, dropped = _ep_local(
+        x.reshape(Bl * Sl, D), p["router"], *w, cfg, expert_perm, lo)
+    Tl = Bl * Sl
     # each token's experts live on exactly one rank each -> psum = combine
     y = C.psum(y, model).reshape(Bl, Sl, D)
 
-    dropped = (~kept).sum().float()
     n_dp = 1
     for g in dp:
         aux_loss = C.psum(aux_loss, g)
@@ -255,3 +331,81 @@ def _moe_fwd_ep(p, x, cfg: ModelConfig, expert_perm, mesh):
         n_dp *= C.size(g)
     return y, {"aux_loss": aux_loss / n_dp, "expert_counts": counts,
                "dropped": dropped, "capacity": capacity(Tl * n_dp, cfg)}
+
+
+def _ep_local(xt, router, wg, wi, wo, cfg: ModelConfig, expert_perm,
+              lo: int):
+    """One rank's part of the expert-parallel dispatch, before any
+    collective: its tokens xt (T, D) routed over all E experts, the kept
+    slots of its local experts [lo, lo + E_loc) (``wg`` etc. their
+    weights) packed at row e * cap + pos, and the combine of what they
+    give. Returns (y (T, D): this rank's experts' share, aux loss, counts
+    (E,), drops) of these tokens."""
+    T, D = xt.shape
+    E, K = cfg.n_experts, cfg.top_k
+    E_loc = wg.shape[0]
+    dt, dev = xt.dtype, xt.device
+    probs, gate_vals, gate_idx = _route({"router": router}, xt, K,
+                                        expert_perm)
+    # routing stats from (T K,) vectors, no (T, K, E) one-hots
+    flat_e = gate_idx.reshape(T * K)
+    pos, counts = _rank_within_expert(flat_e, E)
+    counts = counts.float()
+    aux_loss = E * (counts / (T * K) * probs.mean(0)).sum()
+
+    cap = capacity(T, cfg)
+    kept = pos < cap
+    rel = flat_e - lo
+    mine = kept & (rel >= 0) & (rel < E_loc)
+    dest = torch.where(mine, rel * cap + pos, E_loc * cap)
+    buf = torch.zeros((E_loc * cap + 1, D), dtype=dt, device=dev)
+    buf.index_add_(0, dest, xt[:, None].expand(T, K, D).reshape(T * K, D))
+    ye = _expert_ffn(buf[:E_loc * cap].reshape(E_loc, cap, D), wg, wi, wo,
+                     "auto")
+    ye = torch.cat([ye.reshape(E_loc * cap, D),
+                    torch.zeros((1, D), dtype=dt, device=dev)])
+    return (_combine(ye, dest, gate_vals, K), aux_loss, counts,
+            (~kept).sum().float())
+
+
+def _moe_fwd_ep_dt(p, x, cfg: ModelConfig, expert_perm):
+    """``_moe_fwd_ep`` on DTensors: x's batch split over the data dims
+    (``pod``, ``data``) kept, x replicated over ``model``, the router
+    replicated and the experts split over ``model`` alone (JAX's
+    shard_map in_specs). The combine is a partial sum over ``model``; the
+    aux loss, a mean, and the counts and drops, sums, are partial sums
+    over the data dims that split the batch."""
+    B, S, D = x.shape
+    E = cfg.n_experts
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    split = [names[md] in ("pod", "data") and isinstance(pl, Shard)
+             and pl.dim == 0 for md, pl in enumerate(x.placements)]
+    xpl = [Shard(0) if sp else Replicate() for sp in split]
+    x = x.redistribute(mesh, xpl)
+    wpl = [Shard(0) if n == "model" else Replicate() for n in names]
+    w = [p[k].redistribute(mesh, wpl) for k in ("wg", "wi", "wo")]
+    E_loc = E // mesh["model"].size()
+    lo = mesh.get_local_rank("model") * E_loc
+    n_dp = 1
+    for md, sp in enumerate(split):
+        n_dp *= mesh.size(md) if sp else 1
+
+    def local(xl, router, wg, wi, wo):
+        Bl = xl.shape[0]
+        y, aux, counts, dropped = _ep_local(
+            xl.reshape(Bl * S, D), router, wg, wi, wo, cfg, expert_perm,
+            lo)
+        return y.reshape(Bl, S, D), aux, counts, dropped
+
+    ypl = tuple(Partial() if n == "model" else pl
+                for n, pl in zip(names, xpl))
+    spl = tuple(Partial() if sp else Replicate() for sp in split)
+    y, aux, counts, dropped = local_call(
+        local, (ypl, spl, spl, spl), x, replicated(p["router"]), *w)
+    R = [Replicate()] * mesh.ndim
+    return y.redistribute(mesh, xpl), {
+        "aux_loss": aux.redistribute(mesh, R) / n_dp,
+        "expert_counts": counts.redistribute(mesh, R),
+        "dropped": dropped.redistribute(mesh, R),
+        "capacity": capacity(B * S, cfg)}

@@ -24,6 +24,19 @@ float32 masters as JAX does (``init_lm(..., dtype=torch.float32)``): in
 compute dtype inside its body, so that remat recomputes the cast copy
 and the gradients arrive in float32.
 
+Every entry point takes DTensor parameters and inputs laid out by
+``dist.sharding`` (``distribute_tree`` of ``tree_shardings``), as the
+JAX package's run under GSPMD: FSDP over ``data``, TP / EP over
+``model``, DP over ``pod`` and ``data``. DTensor's sharding propagation
+inserts the collectives; ``shard_act`` constrains the residual stream
+after every block (and q, k, v and the MoE's slot buffers), at the JAX
+package's sites. The constants a step builds (positions, zero
+statistics) are made replicated on the activations' mesh
+(``dist.sharding.like``), and partial sums are reduced at the residual
+stream's inputs (``dist.sharding.reduced``). A plain tensor takes the
+same path as before: ``shard_act``, ``reduced`` and ``like`` return it
+as it is.
+
 ``cfg.remat`` applies in ``mode="train"`` while autograd records: each
 layer's body runs under ``torch.utils.checkpoint`` (non-reentrant);
 ``none`` saves every activation, ``full`` none of the layer's, ``dots``
@@ -36,7 +49,12 @@ import functools
 from typing import Any, Dict, Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils import checkpoint as _ckpt
+
+from ..dist.sharding import (cache_axes, like, local_call, reduced,
+                             shard_act, sharded_zeros)
+from ..kernels import ops
 
 from .attention import attn_fwd, attn_init
 from .config import ModelConfig
@@ -130,36 +148,48 @@ def n_attn_caches(cfg: ModelConfig) -> int:
     return cfg.n_layers
 
 
-def _recurrent_leaves(cfg: ModelConfig, slots: int, dtype, device):
+def _zeros(device):
+    return lambda name, shape, dtype: torch.zeros(shape, dtype=dtype,
+                                                  device=device)
+
+
+def _recurrent_leaves(cfg: ModelConfig, slots: int, dtype, zeros):
     """Per-slot Mamba2 state (L, slots, ...) of the ssm and hybrid
     families: conv states in ``dtype`` (they hold compute-dtype values, so
-    this is lossless), ssm in float32 as JAX hard-codes."""
+    this is lossless), ssm in float32 as JAX hard-codes. ``zeros(name,
+    shape, dtype)`` makes each leaf."""
     if cfg.family not in ("ssm", "hybrid"):
         return {}
     L, k1 = cfg.n_layers, cfg.ssm_conv - 1
-    z = lambda *s, dt=dtype: torch.zeros((L, slots) + s, dtype=dt,
-                                         device=device)
-    return {"conv_x": z(k1, cfg.d_inner),
-            "conv_B": z(k1, cfg.ssm_state),
-            "conv_C": z(k1, cfg.ssm_state),
-            "ssm": z(cfg.ssm_heads, cfg.ssm_state, cfg.ssm_headdim,
-                     dt=torch.float32)}
+    shapes = {"conv_x": ((k1, cfg.d_inner), dtype),
+              "conv_B": ((k1, cfg.ssm_state), dtype),
+              "conv_C": ((k1, cfg.ssm_state), dtype),
+              "ssm": ((cfg.ssm_heads, cfg.ssm_state, cfg.ssm_headdim),
+                      torch.float32)}
+    return {k: zeros(k, (L, slots) + s, dt) for k, (s, dt) in shapes.items()}
 
 
 def make_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
-               device=None) -> Dict[str, torch.Tensor]:
+               device=None, mesh=None) -> Dict[str, torch.Tensor]:
     """Contiguous per-slot caches: attention k/v (n_attn_caches, batch,
     max_seq, Hkv, hd) and, for the ssm and hybrid families, the recurrent
-    leaves per slot."""
+    leaves per slot. With ``mesh``, each leaf a DTensor laid out on it by
+    ``dist.sharding.cache_axes`` (JAX's prefill out_shardings), each rank
+    allocating only its shard."""
     _check_family(cfg)
     device = resolve_device(device)
     dtype = dtype or compute_dtype(cfg)
+    zeros = _zeros(device)
+    if mesh is not None:
+        axes = cache_axes(cfg)
+        zeros = lambda name, shape, dt: sharded_zeros(shape, dt, axes[name],
+                                                      mesh, device)
     cache = {}
     if n_attn_caches(cfg):
         kv = (n_attn_caches(cfg), batch, max_seq, cfg.n_kv_heads, cfg.hd)
-        cache["k"] = torch.zeros(kv, dtype=dtype, device=device)
-        cache["v"] = torch.zeros(kv, dtype=dtype, device=device)
-    cache.update(_recurrent_leaves(cfg, batch, dtype, device))
+        cache["k"] = zeros("k", kv, dtype)
+        cache["v"] = zeros("v", kv, dtype)
+    cache.update(_recurrent_leaves(cfg, batch, dtype, zeros))
     return cache
 
 
@@ -182,29 +212,42 @@ def make_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
               cfg.n_kv_heads, cfg.hd)
         cache["k"] = torch.zeros(kv, dtype=dtype, device=device)
         cache["v"] = torch.zeros(kv, dtype=dtype, device=device)
-    cache.update(_recurrent_leaves(cfg, slots, dtype, device))
+    cache.update(_recurrent_leaves(cfg, slots, dtype, _zeros(device)))
     return cache
 
 
 # -------------------------------------------------------------- forward
-def _zero_aux(cfg: ModelConfig, device):
-    aux = {"aux_loss": torch.zeros((), device=device)}
+def _zero_aux(cfg: ModelConfig, x):
+    """The zero sums of the MoE statistics, on x's device (and mesh)."""
+    z = lambda *s: like(x, torch.zeros(s, device=x.device))
+    aux = {"aux_loss": z()}
     if cfg.family == "moe":
-        aux["expert_counts"] = torch.zeros(cfg.n_experts, device=device)
-        aux["dropped"] = torch.zeros((), device=device)
+        aux["expert_counts"] = z(cfg.n_experts)
+        aux["dropped"] = z()
     return aux
+
+
+def _layer_of(t, i: int):
+    """Layer ``i``'s view of a cache leaf (L, ...). A DTensor's is taken
+    on its local shard (its layer axis is never split): DTensor's own
+    select would propagate its sharding afresh for every layer index."""
+    if not isinstance(t, DTensor):
+        return t[i]
+    pls = tuple(Shard(p.dim - 1) if isinstance(p, Shard) else p
+                for p in t.placements)
+    return local_call(lambda c: c[i], pls, t)
 
 
 def _attention(cfg, bp, x, positions, cache, ci, cache_len, mode,
                block_tables):
     """x + attention of ``bp`` (a block or the shared block) on k/v cache
     layer ``ci`` (a view, updated in place)."""
-    acache = ({"k": cache["k"][ci], "v": cache["v"][ci]}
+    acache = ({"k": _layer_of(cache["k"], ci), "v": _layer_of(cache["v"], ci)}
               if cache else None)
     h, _ = attn_fwd(bp["attn"], rmsnorm(x, bp["ln1"], cfg.norm_eps),
                     positions, cfg, cache=acache, cache_len=cache_len,
                     mode=mode, block_tables=block_tables)
-    return x + h
+    return x + reduced(h)
 
 
 def _applies_shared(cfg: ModelConfig, li: int) -> bool:
@@ -230,24 +273,26 @@ def _layer(cfg, bp, sp, li, x, positions, cache, cache_len, mode,
         active = (cache_len >= 0 if mode == "decode"
                   and torch.is_tensor(cache_len) and cache_len.dim() == 1
                   else None)
-        mcache = {k: cache[k][li] for k in STATE_KEYS} if cache else None
+        mcache = ({k: _layer_of(cache[k], li) for k in STATE_KEYS}
+                  if cache else None)
         h, _ = mamba_fwd(bp["mamba"], rmsnorm(x, bp["ln"], cfg.norm_eps),
                          cfg, cache=mcache, mode=mode, active=active)
-        x = x + h
+        x = x + reduced(h)
         if _applies_shared(cfg, li):
             # The shared block, on its application's own k/v layer.
             x = _attention(cfg, sp, x, positions, cache,
                            (li + 1) // cfg.attn_every - 1, cache_len, mode,
                            block_tables)
-            x = x + mlp_fwd(sp["mlp"], rmsnorm(x, sp["ln2"], cfg.norm_eps))
+            x = x + reduced(mlp_fwd(sp["mlp"],
+                                    rmsnorm(x, sp["ln2"], cfg.norm_eps)))
         return x, None
     x = _attention(cfg, bp, x, positions, cache, li, cache_len, mode,
                    block_tables)
     hin = rmsnorm(x, bp["ln2"], cfg.norm_eps)
     if cfg.family == "moe":
         h, aux = moe_fwd(bp["moe"], hin, cfg)
-        return x + h, aux
-    return x + mlp_fwd(bp["mlp"], hin), None
+        return x + reduced(h), aux
+    return x + reduced(mlp_fwd(bp["mlp"], hin)), None
 
 
 def _save_dots(ctx, op, *args, **kwargs):
@@ -284,31 +329,65 @@ def run_layers(params, cfg: ModelConfig, x, positions, cache, cache_len,
     Returns (x, cache, aux): aux sums each layer's ``aux_loss`` (and, for
     the moe family, ``expert_counts`` and ``dropped``) as JAX's scan
     does."""
-    aux = _zero_aux(cfg, x.device)
+    aux = _zero_aux(cfg, x)
     for li in range(cfg.n_layers):
         if mode == "train":
             x, layer_aux = _train_layer(params, cfg, li, x, positions)
         else:
             x, layer_aux = apply_layer(params, cfg, li, x, positions, cache,
                                        cache_len, mode, block_tables)
+        x = shard_act(x, "batch", "seq", "act_embed")
         if layer_aux is not None:
             for k in aux:
                 aux[k] = aux[k] + layer_aux[k]
     return x, cache, aux
 
 
+def _lookup(table, ids):
+    """table[ids]. On DTensors, the vocab-sharded lookup: the table's
+    embed dim is gathered (FSDP), each rank looks up the ids that fall in
+    its vocab rows (zeros elsewhere), and the partial rows are summed over
+    the vocab's mesh dims; the ids keep their batch split."""
+    if not isinstance(table, DTensor):
+        return table[ids]
+    mesh = table.device_mesh
+    vocab = [isinstance(p, Shard) and p.dim == 0 for p in table.placements]
+    table = table.redistribute(mesh, [p if v else Replicate() for p, v in
+                                      zip(table.placements, vocab)])
+    ids = ids.redistribute(mesh, [Replicate() if v else p for p, v in
+                                  zip(ids.placements, vocab)])
+    off = ops.shard_offset(table, 0)
+
+    def local(t, i):
+        rel = i.long() - off
+        hit = (rel >= 0) & (rel < t.shape[0])
+        rows = t[rel.clamp(0, t.shape[0] - 1)]
+        return torch.where(hit.unsqueeze(-1), rows, 0.0).to(t.dtype)
+
+    out = local_call(local, tuple(Partial() if v else p for p, v in
+                                  zip(ids.placements, vocab)), table, ids)
+    return out.redistribute(mesh, [Replicate() if v else p for p, v in
+                                   zip(ids.placements, vocab)])
+
+
 def embed_tokens(params, cfg: ModelConfig, tokens):
     if cfg.n_codebooks:
         # audio: sum the K codebook embeddings of (B, S, K) tokens
         emb = params["embed"]                           # (K, Vp, D)
-        return sum(emb[k][tokens[..., k]] for k in range(cfg.n_codebooks))
-    return params["embed"][tokens]
+        return sum(_lookup(emb[k], tokens[..., k])
+                   for k in range(cfg.n_codebooks))
+    return _lookup(params["embed"], tokens)
 
 
 def lm_logits(params, cfg: ModelConfig, x):
     if cfg.n_codebooks:
         head = (params["embed"].transpose(1, 2) if cfg.tie_embeddings
                 else params["head"])                    # (K, D, Vp)
+        if isinstance(x, DTensor):
+            # one product a codebook: DTensor's einsum would reshape the
+            # K heads' sharded vocab into K * Vp
+            return torch.stack([x @ head[k] for k in range(head.shape[0])],
+                               dim=2)
         return torch.einsum("bsd,kdv->bskv", x, head)
     head = params["embed"].T if cfg.tie_embeddings else params["head"]
     return x @ head
@@ -334,14 +413,17 @@ def forward(params, cfg: ModelConfig, tokens=None, positions=None,
         x = embed_tokens(params, cfg, tokens)
     B, S = x.shape[:2]
     if positions is None:
-        ar = torch.arange(S, dtype=torch.int32, device=x.device)[None]
+        ar = like(x, torch.arange(S, dtype=torch.int32,
+                                  device=x.device)[None])
         if cache_len is None:
             positions = ar.expand(B, S)
         elif isinstance(cache_len, int):
             positions = (ar + cache_len).expand(B, S)
         else:
-            cl = torch.as_tensor(cache_len, dtype=torch.int32,
-                                 device=x.device)
+            cl = (cache_len.to(torch.int32)
+                  if isinstance(cache_len, DTensor) else
+                  like(x, torch.as_tensor(cache_len, dtype=torch.int32,
+                                          device=x.device)))
             off = (cl.clamp(min=0)[:, None] if cl.dim() == 1
                    else cl.expand(B, 1))
             positions = ar + off

@@ -9,6 +9,9 @@ are immutable, ``adamw_update`` updates the parameters and both moments IN
 PLACE (under ``torch.no_grad()``, each product and sum rounded as in
 JAX's expression), so that a step holds one copy of each and not two:
 1.1 B float32 parameters with their gradients and moments take 17.6 GB.
+DTensor leaves (a sharded step) are updated alike, each rank on its
+shards: the moments take the parameters' placements, the step and the
+scalars made from it are replicated on their mesh.
 """
 from __future__ import annotations
 
@@ -17,6 +20,8 @@ import math
 from typing import Any, Dict, Tuple
 
 import torch
+
+from ..dist.sharding import like
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,9 +74,10 @@ def tree_map(fn, tree):
 def adamw_init(params) -> Dict[str, Any]:
     zeros = lambda: tree_map(
         lambda p: torch.zeros_like(p, dtype=torch.float32), params)
-    device = tree_leaves(params)[0].device
+    p0 = tree_leaves(params)[0]
     return {"m": zeros(), "v": zeros(),
-            "step": torch.zeros((), dtype=torch.int32, device=device)}
+            "step": like(p0, torch.zeros((), dtype=torch.int32,
+                                         device=p0.device))}
 
 
 def global_norm(tree) -> torch.Tensor:

@@ -7,10 +7,13 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch.dist.sharding import replicated
 from repro_torch.models import decode_step as _decode
 from repro_torch.models import init_lm, prefill as _prefill, train_loss
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.lm import argmax_vocab
 
 from .optimizer import (OptConfig, adamw_init, adamw_update, tree_leaves,
                         tree_map)
@@ -20,7 +23,8 @@ def loss_and_grads(params, cfg: ModelConfig, batch):
     """``train_loss`` and the gradient of every leaf of ``params`` (a
     tree of the same shape, float32 for float32 masters). A leaf the loss
     does not reach (the vlm family's token embedding) gets zeros, as
-    ``jax.grad`` gives it. Returns (loss, metrics, grads), detached."""
+    ``jax.grad`` gives it. DTensor leaves get gradients with their own
+    placements. Returns (loss, metrics, grads), detached."""
     leaves = tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
@@ -29,15 +33,27 @@ def loss_and_grads(params, cfg: ModelConfig, batch):
 
     def grad(p):
         g = next(got)
-        return torch.zeros_like(p) if g is None else g
+        if g is None:
+            return torch.zeros_like(p)
+        if isinstance(g, DTensor) and g.placements != p.placements:
+            g = g.redistribute(p.device_mesh, p.placements)
+        return g
 
     grads = tree_map(grad, params)
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
 def _split(batch, microbatches: int, i: int):
-    return {k: v.reshape((microbatches, v.shape[0] // microbatches)
-                         + tuple(v.shape[1:]))[i] for k, v in batch.items()}
+    """Microbatch i: rows [i B / m, (i + 1) B / m) of every leaf, as JAX
+    slices them. A DTensor leaf is gathered, sliced, and laid out again
+    with its own placements."""
+    def one(v):
+        mb = replicated(v).reshape((microbatches, v.shape[0] // microbatches)
+                                   + tuple(v.shape[1:]))[i]
+        if isinstance(v, DTensor):
+            mb = mb.redistribute(v.device_mesh, v.placements)
+        return mb
+    return {k: one(v) for k, v in batch.items()}
 
 
 def make_train_step(cfg: ModelConfig, oc: OptConfig, microbatches: int = 1):
@@ -76,7 +92,7 @@ def make_prefill_step(cfg: ModelConfig, max_seq: int):
     def prefill_step(params, batch):
         logits, cache = _prefill(params, cfg, batch, max_seq=max_seq)
         # the last position's greedy token (sampling lives in the engine)
-        next_tok = torch.argmax(logits[:, -1:, ..., :cfg.vocab], dim=-1)
+        next_tok = argmax_vocab(logits[:, -1:], cfg.vocab)
         return next_tok, cache
 
     return prefill_step
@@ -85,7 +101,7 @@ def make_prefill_step(cfg: ModelConfig, max_seq: int):
 def make_decode_step(cfg: ModelConfig):
     def decode_one(params, tokens, cache, cache_len):
         logits, cache = _decode(params, cfg, tokens, cache, cache_len)
-        next_tok = torch.argmax(logits[..., :cfg.vocab], dim=-1)
+        next_tok = argmax_vocab(logits, cfg.vocab)
         return next_tok, cache
 
     return decode_one

@@ -200,15 +200,16 @@ def test_reckon_lm_counts_each_rule():
     assert got == {"all-reduce": want, "total": want,
                    "count": cfg.n_layers * 2}
     # train under remat: (b) x 3 passes (forward, its dual, the
-    # recompute) plus (a), the leaves replicated on an axis of size 2
-    # (norms: embed over data, replicated over model)
+    # recompute) at attention's wo, x 2 at the MLP's wo (the layer's last
+    # product, not recomputed), plus (a), the leaves replicated on an
+    # axis of size 2 (norms: embed over data, replicated over model)
     cfg = dataclasses.replace(cfg, remat="full")
     params = init_lm(cfg, device="meta", dtype=torch.float32)
     got = comm.reckon_lm(cfg, "train", 4, 64, mesh, pshapes=params)
-    b = 3 * cfg.n_layers * 2 * rows * 64 * cfg.d_model * es
+    b = (3 + 2) * cfg.n_layers * rows * 64 * cfg.d_model * es
     norms = (2 * cfg.n_layers + 1) * cfg.d_model // 2 * 4
     assert got["all-reduce"] == b + norms
-    assert got["count"] == 3 * cfg.n_layers * 2 + 2 * cfg.n_layers + 1
+    assert got["count"] == (3 + 2) * cfg.n_layers + 2 * cfg.n_layers + 1
     # moe: (c) once per layer at prefill, beside attention's wo (b)
     mcfg = ARCHS["moonshot-v1-16b-a3b"].smoke()
     mes = getattr(torch, mcfg.dtype)
