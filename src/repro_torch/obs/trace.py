@@ -26,14 +26,21 @@ LM serving fabric:
 Overhead contract: the default is the module-level :data:`NULL_TRACER`
 whose ``enabled`` is False — every instrumentation site guards with
 ``if tracer.enabled:``, so the disabled hot path pays ONE attribute
-check and no call, no allocation, no clock read. ``bench_serve``
-measures tracer-on vs tracer-off tokens/s and CI warns past 5%.
+check and no call, no allocation, no clock read. What tracing costs
+when it is on is measured on the card: the benchmark's
+``engine_step_ms.batch`` (``python3 bench/run.py ... --trace 1``, whose
+engine carries a ``Tracer``) against the same run of a tree without the
+spans, and one engine's steps timed with the tracer on and off in turn
+(PERF.md keeps both readings).
 
-Clock domain: timestamps are ``time.perf_counter_ns() / 1e3`` µs.
-:func:`clock_sync` returns a ``(unix_ts, perf_us)`` pair; the tracer
-stamps one into the export's ``otherData`` and ``benchmarks/run.py``
-stamps one into every ``BENCH_*.json``, so bench rows and trace events
-can be correlated on one axis.
+Clock domain: timestamps are ``time.perf_counter_ns() / 1e3`` µs, the
+clock of ``time.perf_counter``, which the benchmark's harness also
+reads, so its step records and these events share one axis.
+:func:`clock_sync` returns a ``(unix_ts, perf_us)`` pair, which the
+tracer stamps into the export's ``otherData`` to place the trace on the
+wall clock. A span may also carry ``device_ms`` in its end event's
+``args``: the device's own time between two CUDA events recorded at its
+edges (the serving engine's prefill and decode-loop spans).
 """
 from __future__ import annotations
 
@@ -72,9 +79,8 @@ def atomic_write_json(path: str, obj: Any) -> None:
 
 
 def clock_sync() -> Dict[str, float]:
-    """One point relating the wall clock to the trace clock. Stamped
-    into both trace exports and BENCH_*.json rows so the two artifacts
-    share a time axis: ``unix = unix_ts + (ts - perf_us) / 1e6``."""
+    """One point relating the wall clock to the trace clock, stamped
+    into both trace exports: ``unix = unix_ts + (ts - perf_us) / 1e6``."""
     return {"unix_ts": time.time(), "perf_us": now_us()}
 
 
@@ -163,16 +169,21 @@ class Tracer:
         self._stacks.setdefault((pid, tid), []).append(name)
 
     def end(self, pid: int = 0, tid: int = 0,
-            args: Optional[dict] = None, ts: Optional[float] = None) -> None:
+            args: Optional[dict] = None,
+            ts: Optional[float] = None) -> Optional[dict]:
+        """Close the innermost open span of the track. Returns the end
+        event appended (None for an unmatched end), so that a caller can
+        add an argument it learns later, such as a device time."""
         stack = self._stacks.get((pid, tid))
         if not stack:       # unmatched end: drop rather than corrupt
-            return
+            return None
         stack.pop()
         ev = {"ph": "E", "ts": now_us() if ts is None else ts,
               "pid": pid, "tid": tid}
         if args:
             ev["args"] = args
         self.events.append(ev)
+        return ev
 
     @contextmanager
     def span(self, name: str, pid: int = 0, tid: int = 0,

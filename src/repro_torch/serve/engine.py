@@ -85,6 +85,83 @@ KV_LEAVES = ("k", "v")       # attention caches; every other leaf is
 DEFAULT_BLOCK_SIZE = 16
 
 
+class _Phases:
+    """An engine's phase spans while its tracer is on. Each span also
+    opens a host-only profiler range ``engine.<phase>`` (a plain
+    ``cpu_op`` under ``torch.profiler``, not a user annotation, which the
+    profiler would mirror on the device's timeline), so a profile's idle
+    gaps can be put down to the phase the host was in. On a CUDA device a
+    timed span records a CUDA event on the stream at each edge; the pair
+    is read into the span's end event as ``device_ms`` only once a drain
+    has synchronised the stream after both were recorded, so tracing adds
+    no synchronisation. Events are recycled."""
+
+    def __init__(self, tracer, pid: int, device: torch.device):
+        self.tracer, self.pid = tracer, pid
+        self.device = device if device.type == "cuda" else None
+        self._range = torch._C._profiler._RecordFunctionFast
+        self._open = {}         # tid -> [[range, start, stop, seq], ...]
+        self._pending = []      # (end event, start, stop, seq)
+        self._free = []
+        self._seq = 0           # stop events recorded so far
+        self._synced = 0        # of which the stream has finished
+
+    def _record(self):
+        ev = (self._free.pop() if self._free
+              else torch.cuda.Event(enable_timing=True))
+        ev.record(torch.cuda.current_stream(self.device))
+        return ev
+
+    def begin(self, name: str, tid: int = 0, args: Optional[dict] = None,
+              timed: bool = False) -> None:
+        self.tracer.begin(name, pid=self.pid, tid=tid, args=args)
+        rng = self._range("engine." + name.replace("engine_", ""))
+        rng.__enter__()
+        start = self._record() if timed and self.device else None
+        self._open.setdefault(tid, []).append([rng, start, None, 0])
+
+    def stop_clock(self, tid: int = 0) -> None:
+        """Record the device edge of the innermost open timed span on
+        ``tid`` now, ahead of the synchronisation that ends it."""
+        top = self._open.get(tid)
+        if top and top[-1][1] is not None and top[-1][2] is None:
+            self._seq += 1
+            top[-1][2:] = [self._record(), self._seq]
+
+    def end(self, tid: int = 0, args: Optional[dict] = None) -> None:
+        self.stop_clock(tid)
+        rng, start, stop, seq = self._open[tid].pop()
+        rng.__exit__(None, None, None)
+        ev = self.tracer.end(pid=self.pid, tid=tid, args=args)
+        if start is not None:
+            self._pending.append((ev, start, stop, seq))
+
+    def unwind(self) -> None:
+        """End every span still open, innermost first: after a step, its
+        own; after an error inside it, the phases it was in as well."""
+        for tid in sorted(self._open, reverse=True):
+            while self._open[tid]:
+                self.end(tid)
+
+    def synced(self) -> None:
+        """The stream has finished everything enqueued so far."""
+        self._synced = self._seq
+
+    def resolve(self) -> None:
+        """Fill in ``device_ms`` of every span whose stop event the
+        stream has passed; the rest wait for a later drain."""
+        wait = []
+        for ev, start, stop, seq in self._pending:
+            if seq > self._synced:
+                wait.append((ev, start, stop, seq))
+                continue
+            if ev is not None:
+                ev.setdefault("args", {})["device_ms"] = \
+                    start.elapsed_time(stop)
+            self._free += (start, stop)
+        self._pending = wait
+
+
 @dataclasses.dataclass
 class Request:
     """One serving request: prompt tokens in, up to ``max_new`` decoded
@@ -203,6 +280,12 @@ class Engine:
         self.steps = 0
         self.tokens_out = 0
         self.host_syncs = 0    # blocking device->host transfer points
+        # rows the prefill forwards ran (bucket padding included), and
+        # the prefix rows among them
+        self.prefill_rows = 0
+        self.prefill_tokens = 0
+        self._phases = (_Phases(self.tracer, replica_id, self.device)
+                        if self.tracer.enabled else None)
         self.peak_running = 0  # max concurrent sequences observed
         self.peak_occupancy = 0.0   # paged: max pool occupancy observed
         self.peak_fragmentation = 0.0
@@ -283,8 +366,12 @@ class Engine:
             budget = torch.where(active, budget - 1, budget)
             budget = torch.where(lens >= self.max_seq - 1, 0, budget)
             tokens = torch.where(active[:, None], nxt[:, None], tokens)
+        if self.tracer.enabled:
+            self._phases.stop_clock()
         buf = buf.cpu().numpy()             # the single drain
         self.host_syncs += 1
+        if self.tracer.enabled:
+            self._phases.synced()
         return buf
 
     def submit(self, req: Request):
@@ -386,6 +473,8 @@ class Engine:
                     self.tracer.begin("prefill", pid=self.replica_id,
                                       args={"rid": req.rid})
                 true_len = min(len(req.prompt), self.pad_len)
+                self.prefill_rows += self.pad_len
+                self.prefill_tokens += true_len
                 toks = np.zeros((1, self.pad_len), np.int32)
                 toks[0, :true_len] = req.prompt[:true_len]
                 # Prefill writes the prompt's k/v (or recurrent state)
@@ -511,8 +600,7 @@ class Engine:
         if self.tracer.enabled:
             self.tracer.thread_name(self.replica_id, 1 + slot,
                                     f"slot {slot}")
-            self.tracer.begin(name, pid=self.replica_id, tid=1 + slot,
-                              args=args)
+            self._phases.begin(name, tid=1 + slot, args=args, timed=True)
 
     def _admit_paged(self, slot: int, req: Request):
         """Prefill a scheduler-admitted request into ``slot``: prefill the
@@ -525,6 +613,8 @@ class Engine:
                      self.max_seq)
         toks = np.zeros((1, bucket), np.int32)
         toks[0, :true_len] = prefix
+        self.prefill_rows += bucket
+        self.prefill_tokens += true_len
         t0 = now_us()
         self._span_begin("prefill", slot,
                          {"rid": req.rid, "tokens": true_len})
@@ -545,7 +635,8 @@ class Engine:
         first = self._sample(logits[0, true_len - 1])
         self._arm_decode(slot, req, first)
         if self.tracer.enabled:
-            self.tracer.end(pid=self.replica_id, tid=1 + slot)
+            self._phases.end(tid=1 + slot,
+                             args={"rows": bucket, "tokens": true_len})
         self.metrics.histogram("prefill_chunk_ms").observe(
             (now_us() - t0) / 1e3)
         self.lens[slot] = true_len
@@ -557,6 +648,8 @@ class Engine:
         chunk the sequence becomes decodable."""
         prefix = self._prefix_tokens(req)
         toks = np.asarray([prefix[start:end]], np.int32)
+        self.prefill_rows += end - start
+        self.prefill_tokens += end - start
         table = self.pool.block_table(req.rid)
         bt = np.full((1, self.max_blocks), self.num_blocks, np.int32)
         bt[0, : len(table)] = table
@@ -568,7 +661,7 @@ class Engine:
                                cache=self.cache, cache_len=start,
                                mode="prefill", block_tables=self._dev(bt))
         if self.tracer.enabled:
-            self.tracer.end(pid=self.replica_id, tid=1 + slot)
+            self._phases.end(tid=1 + slot)
         self.metrics.histogram("prefill_chunk_ms").observe(
             (now_us() - t0) / 1e3)
         self.pool.advance(req.rid, end)
@@ -766,6 +859,8 @@ class Engine:
         return self._dev(bt)
 
     def _step_paged(self):
+        if self.tracer.enabled:
+            self._phases.begin("plan")
         plan = self.sched.plan_step(self.queue, self.slots, self.lens,
                                     self._prefix_tokens)
         for slot, _req in plan.preempted:
@@ -776,6 +871,8 @@ class Engine:
             for name in KV_LEAVES:                 # COW copy, in place
                 if name in self.cache:
                     self.cache[name][:, dst] = self.cache[name][:, src]
+        if self.tracer.enabled:
+            self._phases.end()
         for slot, req in plan.admit:
             self._admit_paged(slot, req)
         for slot, req, start, end, last in plan.prefill:
@@ -800,9 +897,17 @@ class Engine:
                 np.minimum(np.minimum(self.budget, cap_left), plan.quota),
                 self.budget,
             ).astype(np.int32)
+            if self.tracer.enabled:
+                self._phases.begin("decode_loop", timed=True)
             buf = self._decode_n(self._device_tables(), step_lens,
                                  step_budget)
+            if self.tracer.enabled:
+                self._phases.end(args={"iters": self.steps_per_sync,
+                                       "active": int(plan.active.sum())})
+                self._phases.begin("drain")
             self._drain(buf)
+            if self.tracer.enabled:
+                self._phases.end()
         self.steps += 1
 
     # ------------------------------------------------------------------ step
@@ -811,8 +916,8 @@ class Engine:
         decode steps on the device with ONE host drain at the end."""
         if not self.tracer.enabled:
             return self._step_impl()
-        with self.tracer.span("engine_step", pid=self.replica_id,
-                              args={"step": self.steps}):
+        self._phases.begin("engine_step", args={"step": self.steps})
+        try:
             self._step_impl()
             self.tracer.counter(
                 "load",
@@ -820,6 +925,9 @@ class Engine:
                  "queued": float(len(self.queue))},
                 pid=self.replica_id,
             )
+        finally:
+            self._phases.unwind()
+        self._phases.resolve()
 
     @torch.inference_mode()
     def _step_impl(self):
@@ -867,6 +975,8 @@ class Engine:
         m = self.metrics
         sync = dict(tokens_out=self.tokens_out, steps=self.steps,
                     host_syncs=self.host_syncs,
+                    prefill_rows=self.prefill_rows,
+                    prefill_tokens=self.prefill_tokens,
                     peak_running=self.peak_running,
                     migrations_out=self.migrations_out,
                     migrations_in=self.migrations_in,
