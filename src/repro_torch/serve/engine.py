@@ -2,8 +2,8 @@
 
 The PyTorch counterpart of ``repro.serve.engine.Engine`` (one replica).
 Each replica owns a fixed pool of decode slots. New requests prefill into
-a free slot (prompts padded to a bucket of ``pad_len`` tokens, KV written
-straight into the slot's cache rows); all active slots then advance
+a free slot (prompts cut to ``pad_len`` tokens and padded to a bucket, KV
+written straight into the slot's cache rows); all active slots then advance
 ``steps_per_sync`` tokens per engine step in a loop on the device:
 sampling happens on the device, per-slot done masks gate cache writes and
 length/budget accounting, and each step fills an (N, slots) token buffer
@@ -18,9 +18,16 @@ flat block pools (``models.make_paged_cache``) mapped per sequence by
 ``serve.kvpool``, every step planned by the continuous-batching scheduler
 (lookahead reservation, watermark preemption with resume-by-recompute,
 token budget, FIFO admission), decode through the paged kernel.
-``prefix_cache=True`` adds the radix prefix cache and ``prefill_chunk=N``
-chunked prefill (the paged_prefill kernel attends chunk [s, e) to the pool
-window [0, e)). Both are attention-family features: the recurrent state
+A single-shot paged admission of a family whose prefill rows are
+independent under causal attention (``PAD_TO_BLOCK``: dense, and vlm,
+whose engine prompts are text tokens) pads its prefix only to the pool's
+block size, the unit the copy into the pool moves: the pad rows come
+after the prompt, no real row attends to them, and only the last real
+row is sampled. Every other admission pads to a multiple of ``pad_len``,
+as the JAX engine does. ``prefix_cache=True`` adds the radix prefix cache
+and ``prefill_chunk=N`` chunked prefill (the paged_prefill kernel attends
+chunk [s, e) to the pool window [0, e)), whose shapes are exact already.
+Both are attention-family features: the recurrent state
 of the ssm and hybrid families cannot be forked or resumed mid-prompt, so
 they raise.
 
@@ -29,13 +36,15 @@ per decode slot in both cache layouts; the hybrid family's k/v caches
 hold one layer per application of its shared attention block. Every admission zeroes the slot's recurrent rows before
 its prefill (prefill reads the conv state), and, as in the JAX engine,
 the prompt's padding to the ``pad_len`` bucket runs through the
-recurrence.
+recurrence: these families keep that bucket, since its pad rows change
+the state a request decodes from.
 
 The moe family runs as the dense one does. Its capacity drops are
 batch-global, so a token depends on what every other row of the same
 forward routes: each decode step runs all ``max_slots`` rows (idle ones
-included, with their last token) and each admission its whole padded
-bucket, as the JAX engine does.
+included, with their last token) and each admission its whole ``pad_len``
+bucket, as the JAX engine does, since its pad rows change which real
+tokens are dropped.
 
 ``GLBReplicaBalancer`` drives a fabric of engines with the GLB lifeline
 protocol in two tiers: queued requests first, then, with
@@ -83,6 +92,14 @@ KV_LEAVES = ("k", "v")       # attention caches; every other leaf is
 # per key so the block size does not set its tile. (The JAX engine's
 # default comes from a table tuned for the TPU.)
 DEFAULT_BLOCK_SIZE = 16
+
+# Families whose prefill rows do not interact beyond causal attention, so
+# that a paged admission's pad rows change no real row: it pads them to
+# the block size. The moe family's capacity drops are batch-global and the
+# ssm and hybrid families run pad rows through the recurrence, so those
+# keep the ``pad_len`` bucket; the audio family's (S, K) token rows never
+# reach the engine, which serves one token id a position.
+PAD_TO_BLOCK = ("dense", "vlm")
 
 
 class _Phases:
@@ -196,7 +213,7 @@ class Migration:
     hd), the pool blocks covering exactly the WRITTEN tokens in logical
     order (None for the recurrent family, which resumes by recompute)."""
     req: Request
-    tokens: List[int]          # cache contents = prompt bucket + out[:-1]
+    tokens: List[int]          # cache contents = cut prompt + out[:-1]
     written: int               # == len(tokens), the cache fill level
     block_size: int
     kv: Optional[dict]
@@ -280,7 +297,7 @@ class Engine:
         self.steps = 0
         self.tokens_out = 0
         self.host_syncs = 0    # blocking device->host transfer points
-        # rows the prefill forwards ran (bucket padding included), and
+        # rows the prefill forwards ran (padding included), and
         # the prefix rows among them
         self.prefill_rows = 0
         self.prefill_tokens = 0
@@ -569,8 +586,10 @@ class Engine:
     # ------------------------------------------------------------ paged path
     def _prefix_tokens(self, req: Request) -> List[int]:
         """Tokens an admission must have in cache before decoding: the
-        (bucket-truncated) prompt, plus all-but-the-last generated token
-        when resuming a preempted request."""
+        prompt cut to ``pad_len`` tokens, plus all-but-the-last generated
+        token when resuming a preempted request (the cut holds for every
+        family; only the padding of the prefill differs, see
+        :meth:`_admit_paged`)."""
         return list(req.prompt[: self.pad_len]) + list(req.out[:-1])
 
     def _arm_decode(self, slot: int, req: Request, first):
@@ -604,13 +623,19 @@ class Engine:
 
     def _admit_paged(self, slot: int, req: Request):
         """Prefill a scheduler-admitted request into ``slot``: prefill the
-        padded bucket into the reused row, then copy the prefix's k/v
+        padded prefix into the reused row, then copy the prefix's k/v
         blocks into the pool blocks the scheduler allocated; recurrent
-        leaves are slot-dense and land at ``slot``."""
+        leaves are slot-dense and land at ``slot``. The prefix is padded
+        to a multiple of the block size for the ``PAD_TO_BLOCK`` families
+        (the rows of the blocks it covers are what a ``pad_len`` bucket
+        would write there, under causal attention), and to a multiple of
+        ``pad_len`` for the others, whose pad rows reach real ones through
+        batch-global routing or the recurrence."""
         prefix = self._prefix_tokens(req)
         true_len = len(prefix)
-        bucket = min(-(-true_len // self.pad_len) * self.pad_len,
-                     self.max_seq)
+        q = (self.block_size if self.cfg.family in PAD_TO_BLOCK
+             else self.pad_len)
+        bucket = min(-(-true_len // q) * q, self.max_seq)
         toks = np.zeros((1, bucket), np.int32)
         toks[0, :true_len] = prefix
         self.prefill_rows += bucket

@@ -16,6 +16,13 @@ kernels in interpret mode: an idle slot's attention is zeros there and in
 the port (the JAX oracle gives it uniform attention instead), and idle
 slots are routed.
 
+A paged admission of the dense and vlm families pads its prefix to the
+pool's block size, where the JAX engine pads it to ``pad_len``: with a
+``pad_len`` three blocks long, the tokens of prompts on both sides of
+each block edge are still the JAX engine's (``qwen2-vl-2b.smoke()`` on
+text prompts too), also where a starved pool preempts and a request
+resumes by recompute.
+
 ``mamba2-130m.smoke()`` (ssm family) runs in the three modes it supports.
 Its prompt padding runs through the recurrence, which washes out most of
 a prompt's influence, so equal tokens prove little: the per-slot conv/ssm
@@ -177,6 +184,42 @@ def test_temperature_sampling_deterministic_in_seed():
         outs.append(_run(e, _treqs(2, 12)))
     assert outs[0] == outs[1], "same seed must replay the same tokens"
     assert outs[0] != outs[2], "different seed must explore differently"
+
+
+BLOCK_KW = dict(max_slots=2, max_seq=64, pad_len=48, steps_per_sync=4,
+                paged=True, block_size=16)
+LENGTHS = (1, 15, 16, 17, 47, 48, 60)
+
+
+@pytest.mark.parametrize("num_blocks", [None, 4])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "qwen2-1.5b",
+                                  "qwen2-vl-2b"])
+def test_block_padded_admissions_match_jax_engine(arch, num_blocks):
+    """Prompts of LENGTHS tokens (cut to pad_len 48) through engines with
+    blocks of 16: the port prefills 16, 16, 16, 32, 48, 48 and 48 rows,
+    the JAX engine 48 each, and the greedy tokens are the same. With a
+    pool of 4 blocks (one sequence's worth), three 6-token prompts that
+    decode 40 tokens each: the same preemptions, resumed by recompute,
+    and the same tokens."""
+    from repro.serve.engine import Request as JRequest
+
+    cfg, params, _ = setup(arch)
+    jcfg, jp = _JAX[arch]
+    if num_blocks is None:
+        reqs = [dict(rid=i, prompt=[(3 * i + 7 * j) % 97 + 1
+                                    for j in range(n)], max_new=6 + i % 3)
+                for i, n in enumerate(LENGTHS)]
+    else:
+        reqs = [dict(rid=i, prompt=list(range(1 + i, 7 + i)), max_new=40)
+                for i in range(3)]
+    je = JEngine(jcfg, jp, num_blocks=num_blocks, **BLOCK_KW)
+    te = Engine(cfg, params, device="cpu", num_blocks=num_blocks, **BLOCK_KW)
+    want = _run(je, [JRequest(**r) for r in reqs])
+    assert _run(te, [Request(**r) for r in reqs]) == want
+    assert te.sched.preemptions == je.sched.preemptions
+    assert (te.sched.preemptions > 0) == (num_blocks is not None)
+    if num_blocks is None:
+        assert te.stats()["prefill_rows"] == 16 * 3 + 32 + 48 * 3
 
 
 def test_unported_options_raise():

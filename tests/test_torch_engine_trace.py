@@ -2,7 +2,11 @@
 every ``engine_step`` on the replica's track the children ``plan``,
 ``decode_loop`` and ``drain``; ``prefill`` spans on the slots' tracks
 with the rows launched and the prefix rows among them; the
-``prefill_rows`` / ``prefill_tokens`` counters; nothing at all with the
+``prefill_rows`` / ``prefill_tokens`` counters; the rows a single-shot
+paged admission launches (the dense and vlm families pad a prefix to the
+pool's block size, the moe, ssm and hybrid families to ``pad_len``, a
+resume by recompute too) and the pool blocks it writes, held to a
+forward of the whole ``pad_len`` bucket; nothing at all with the
 tracer off; host-only ``engine.*`` profiler ranges; and on a CUDA device
 ``device_ms`` read from CUDA events only after a drain has synchronised
 the stream (here with stand-in events on the host clock; on the card by
@@ -16,9 +20,9 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import ARCHS
-from repro_torch.models import init_lm
+from repro_torch.models import forward, init_lm, make_cache
 from repro_torch.obs import Tracer, validate_chrome_trace
-from repro_torch.serve.engine import Engine, Request
+from repro_torch.serve.engine import PAD_TO_BLOCK, Engine, Request
 
 PAD = 16
 MODES = {
@@ -112,17 +116,125 @@ def test_prefill_rows_and_counters(mode):
         if name == "prefill":
             n = begin["tokens"]
             assert end["tokens"] == n
-            assert end["rows"] == min(-(-n // PAD) * PAD, 64)
+            # dense: padded to the block size (8), not to PAD
+            assert end["rows"] == min(-(-n // 8) * 8, 64)
             rows, tokens = rows + end["rows"], tokens + n
         elif name == "prefill_chunk":
             rows += begin["end"] - begin["start"]
             tokens += begin["end"] - begin["start"]
     # chunks (and, with the prefix cache, every admission) run exact
-    # shapes; a single-shot admission runs its whole bucket
+    # shapes; a single-shot admission pads to a whole block
     assert tokens > 0 and (rows > tokens) == (mode == "paged")
     st = eng.stats()
     assert (st["prefill_rows"], st["prefill_tokens"]) == (rows, tokens)
     assert not any("device_ms" in s[5] for s in spans)     # a CPU engine
+
+
+# A pad_len three blocks long, so that the two padding rules part.
+BLOCK, BUCKET = 16, 48
+LENGTHS = (1, 15, 16, 17, BUCKET - 1, BUCKET, BUCKET + 12)
+FAMILIES = {"dense": "tinyllama-1.1b", "vlm": "qwen2-vl-2b",
+            "moe": "moonshot-v1-16b-a3b", "ssm": "mamba2-130m",
+            "hybrid": "zamba2-7b"}
+_PARAMS = {}
+
+
+def _family_engine(family, tracer=None, **kw):
+    """A paged engine of ``family``'s smoke config in float32, pad_len
+    BUCKET over blocks of BLOCK (parameters made once a family)."""
+    if family not in _PARAMS:
+        cfg = dataclasses.replace(ARCHS[FAMILIES[family]].smoke(),
+                                  dtype="float32")
+        assert cfg.family == family
+        _PARAMS[family] = (cfg, init_lm(cfg, torch.Generator().manual_seed(0),
+                                        device="cpu"))
+    cfg, params = _PARAMS[family]
+    return Engine(cfg, params, max_slots=2, max_seq=64, pad_len=BUCKET,
+                  steps_per_sync=4, paged=True, block_size=BLOCK,
+                  tracer=tracer, device="cpu", **kw)
+
+
+def _prefills(tr):
+    """(prefix rows, rows launched) of each ``prefill`` span."""
+    return [(end["tokens"], end["rows"]) for name, _, _, _, _, end
+            in _spans(tr.events) if name == "prefill"]
+
+
+@pytest.mark.parametrize("n", LENGTHS)
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_admission_rows_by_family(family, n):
+    """One admission of an n-token prompt: the prompt is cut to pad_len
+    in every family; the dense and vlm families launch its rows padded to
+    a whole block, the others the whole pad_len bucket."""
+    tr = Tracer()
+    eng = _family_engine(family, tracer=tr)
+    req = Request(rid=0, prompt=[(7 * i) % 50 + 1 for i in range(n)],
+                  max_new=2)
+    eng.submit(req)
+    eng.step()
+    true_len = min(n, BUCKET)
+    want = (-(-true_len // BLOCK) * BLOCK if family in PAD_TO_BLOCK
+            else BUCKET)
+    assert (family in PAD_TO_BLOCK) == (family in ("dense", "vlm"))
+    assert _prefills(tr) == [(true_len, want)]
+    st = eng.stats()
+    assert (st["prefill_rows"], st["prefill_tokens"]) == (want, true_len)
+    assert req.done and req.out
+
+
+def test_dense_resume_by_recompute_pads_to_the_block():
+    """A pool too small for both sequences preempts one; its resume
+    prefills prompt + out[:-1] and pads that prefix to the block size
+    too."""
+    tr = Tracer()
+    eng = _family_engine("dense", tracer=tr, num_blocks=4)
+    reqs = [Request(rid=i, prompt=list(range(1 + i, 7 + i)), max_new=40)
+            for i in range(3)]
+    for r in reqs:
+        eng.submit(r)
+    for _ in range(300):
+        if not eng.load:
+            break
+        eng.step()
+    assert all(r.done for r in reqs) and eng.sched.preemptions > 0
+    pre = _prefills(tr)
+    assert len(pre) == len(reqs) + eng.sched.preemptions
+    for n, rows in pre:
+        assert rows == -(-n // BLOCK) * BLOCK
+    # a resumed prefix (longer than its 6-token prompt) shorter than the
+    # pad_len bucket
+    assert any(6 < n and rows < BUCKET for n, rows in pre)
+
+
+@pytest.mark.parametrize("n", LENGTHS)
+@pytest.mark.parametrize("family", PAD_TO_BLOCK)
+def test_pool_blocks_equal_a_whole_bucket_forward(family, n):
+    """The pool blocks an admission padded to the block size writes hold
+    what a forward of the whole pad_len bucket writes in those rows, pad
+    rows up to the block's end included (float32, the parity tests'
+    tolerance)."""
+    eng = _family_engine(family)
+    req = Request(rid=0, prompt=[(5 * i) % 60 + 2 for i in range(n)],
+                  max_new=2)
+    eng.submit(req)
+    plan = eng.sched.plan_step(eng.queue, eng.slots, eng.lens,
+                               eng._prefix_tokens)
+    ((slot, got),) = plan.admit
+    with torch.inference_mode():
+        eng._admit_paged(slot, got)
+        true_len = min(n, BUCKET)
+        toks = torch.zeros((1, BUCKET), dtype=torch.int32)
+        toks[0, :true_len] = torch.tensor(req.prompt[:BUCKET])
+        row = make_cache(eng.cfg, 1, eng.max_seq, device="cpu")
+        forward(eng.params, eng.cfg, toks, cache=row, cache_len=0,
+                mode="prefill")
+    n_pb = -(-true_len // BLOCK)
+    ids = torch.tensor(eng.pool.block_table(0)[:n_pb])
+    for name in ("k", "v"):
+        pool = eng.cache[name][:, ids]
+        blocks = pool.reshape(pool.shape[0], n_pb * BLOCK, *pool.shape[3:])
+        torch.testing.assert_close(blocks, row[name][:, 0, :n_pb * BLOCK],
+                                   atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.parametrize("mode", list(MODES))
