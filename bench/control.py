@@ -2,8 +2,9 @@
 """Readings that set a cell's limit: for each seed, one run of the cell at
 its own size and load (a short window), the widest gap of the served
 tokens under the reference, and, for the seeds named by
-``--control-seeds``, the widest gap of the control (the reference in
-float8, ``reference.dense``) and the ``correct`` that the run's own
+``--control-seeds``, the widest gap of the control (the layout's
+reference, ``reference.<layout>``, below the configuration's precision:
+float8 for the dense layout) and the ``correct`` that the run's own
 checks give it. One process, one JSON line a seed, then a summary line.
 
     python3 bench/control.py --workload <cell> --seeds 1,2,3 \\

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import importlib
 import sys
 import time
 from typing import Dict, List, Optional
@@ -11,12 +12,13 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from layouts import layout_of
+
 from . import system
 from .profile import SliceProfiler, load_classes
 from .serve import LoadLoop
 from .spec import BENCH, Cell, reader
 from .traffic import Traffic
-from .weights import dims
 
 PROFILE_AT = 0.3          # the traced slice starts this far into the window
 PROFILE_S = 5.0           # and runs whole steps for at least this long
@@ -24,8 +26,10 @@ PROFILE_S = 5.0           # and runs whole steps for at least this long
 
 @dataclasses.dataclass
 class RunView:
-    """What a metric's reader sees."""
+    """What a metric's reader sees: with the run's records, the model's
+    layout module (``bench/layouts/<layout>.py``) and its ``dims``."""
     cell: Cell
+    layout: object
     d: dict
     engine: dict
     setup_s: float
@@ -84,13 +88,14 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
         t_process: float, log=lambda s: print(s, file=sys.stderr),
         control: bool = False) -> dict:
     """One run; with ``control`` the reference also computes the
-    comparison's control (``reference.dense``, float8), whose widest gap
+    comparison's control (``reference.<layout>``'s), whose widest gap
     goes through the same checks and comes back under ``control`` with its
     own ``correct`` (the benchmark's own runs never ask)."""
     device = torch.device(device)
     cuda = device.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
-    d = dims(cell.config)
+    lay = layout_of(cell.config)
+    d = lay.dims(cell.config)
     load = cell.traffic["load"]
     mcfg = system.model_config(cell.config)
     t_params = time.perf_counter()
@@ -116,10 +121,16 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
     pre = [s for s in loop.steps if s.t1 <= loop.window[0]]
     log(f"set-up: {len(pre)} engine steps before the window, "
         f"{sum(s.t1 - s.t0 for s in pre):.2f} s")
+    win = [s for s in loop.steps if s.window]
+    log(f"window: {len(win)} engine steps, "
+        f"{sum(len(s.admitted) for s in win)} admissions, "
+        f"{sum(s.prompt_tokens for s in win)} prompt and "
+        f"{sum(s.out_tokens for s in win)} output tokens, "
+        f"{loop.window[1] - loop.window[0]!r} s")
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
     if eng.sched.preemptions:
         log(f"note: {eng.sched.preemptions} preemptions")
-    view = RunView(cell, d, cell.engine, setup_s, loop,
+    view = RunView(cell, lay, d, cell.engine, setup_s, loop,
                    spans=tracer.events if tracer is not None else None)
     if prof is not None:
         view.trace = prof.reduce(load_classes(BENCH / "kernel_classes"))
@@ -184,12 +195,12 @@ def _correct(checks: dict, served) -> bool:
 
 
 def _widest_gap(cfg: dict, seed: int, served, device, control: bool):
-    """The widest gap of a served token, and with ``control`` the widest
-    gap of the control's own first choices."""
-    from reference.dense import served_gaps
-
+    """The widest gap of a served token under the layout's reference
+    (``reference.<layout>``), and with ``control`` the widest gap of the
+    control's own first choices."""
     if not served:
         return None, None
-    res = served_gaps(cfg, seed, served, device, control)
+    ref = importlib.import_module(f"reference.{cfg['layout']}")
+    res = ref.served_gaps(cfg, seed, served, device, control)
     widest = lambda gs: max(max(g) for g in gs)
     return widest(res["gap"]), widest(res["control"]) if control else None

@@ -28,7 +28,7 @@ import dataclasses
 import time
 from typing import Callable, List, Optional
 
-from .system import Request, bucket
+from .system import Request
 
 TAIL_CAP_S = 60.0
 WARM_RID = -(1 << 40)         # no request of the traffic has this id
@@ -39,7 +39,6 @@ class Rec:
     i: int
     req: Request
     prompt_len: int
-    bucket: int
     due: float                    # due (open loop) or submit time
     window: bool = False          # due in the window (open loop)
     t_first: Optional[float] = None
@@ -53,7 +52,7 @@ class Rec:
 class Step:
     t0: float
     t1: float
-    admitted: List[tuple]          # (prompt_len, bucket) prefilled here
+    admitted: List[int]            # prompt lengths admitted here
     decode: List[tuple]            # (cache length before, tokens) a slot
     prompt_tokens: int
     out_tokens: int
@@ -85,8 +84,7 @@ class LoadLoop:
         i = len(self.recs)
         prompt, max_new = self.traffic.request(i)
         req = Request(rid=i, prompt=prompt, max_new=max_new)
-        rec = Rec(i, req, len(prompt), bucket(self.ecfg, len(prompt)), due,
-                  window)
+        rec = Rec(i, req, len(prompt), due, window)
         self.recs.append(rec)
         self.live.append(rec)
         self.eng.submit(req)
@@ -107,7 +105,7 @@ class LoadLoop:
             st.out_tokens += n1 - n0
             if n0 == 0:
                 r.t_first = t1
-                st.admitted.append((r.prompt_len, r.bucket))
+                st.admitted.append(r.prompt_len)
                 st.prompt_tokens += r.prompt_len
                 if n1 > 1:
                     st.decode.append((r.prompt_len, n1 - 1))
@@ -143,7 +141,7 @@ class LoadLoop:
     def warm(self) -> None:
         """Serve one request outside the records, so that the kernels are
         built or loaded and the cell's shapes run once before any arrival
-        (a prompt of ``pad_len`` tokens has the bucket of every prompt)."""
+        (a prompt of ``pad_len`` tokens, the longest the engine admits)."""
         req = Request(rid=WARM_RID, prompt=[1] * self.ecfg["pad_len"],
                       max_new=1)
         self.eng.submit(req)

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import bisect
 import dataclasses
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 
 @dataclasses.dataclass
@@ -64,3 +64,26 @@ def timed_steps(run):
     """The window's steps outside the profiled slice (the steps that
     ``engine_step_ms.batch`` reads)."""
     return [s for s in run.steps if s.window and not s.profiled]
+
+
+def prefill_rows(run, steps) -> Optional[List[List[int]]]:
+    """For each of ``steps``, the rows that each of its prefills launched:
+    the ``rows`` end arg of its ``prefill`` spans (a fresh admission's, or
+    a preempted request's again). None where the engine does not say: no
+    spans, a ``prefill`` span without ``rows``, a step with fewer
+    ``prefill`` spans than admissions, or a ``prefill_chunk`` span, whose
+    rows attend to a cached prefix that no count here reckons."""
+    if run.spans is None:
+        return None
+    groups = by_step(run, steps)
+    out = []
+    for k, step in enumerate(steps):
+        group = groups.get(k, [])
+        if any(sp.name == "prefill_chunk" for sp in group):
+            return None
+        pre = [sp for sp in group if sp.name == "prefill"]
+        if len(pre) < len(step.admitted) or any("rows" not in sp.args
+                                                 for sp in pre):
+            return None
+        out.append([sp.args["rows"] for sp in pre])
+    return out

@@ -1,5 +1,6 @@
 """Finds a cell's parts by name: its entry in ``BENCHMARK.json``, its
-configuration file, its traffic mix (``bench/traffic/<traffic>.json``),
+configuration file and the layout it names (``bench/layouts/<layout>.py``,
+``layouts.layout_of``), its traffic mix (``bench/traffic/<traffic>.json``),
 its limits (``bench/limits/<cell>.json``), and the reader of each of its
 metrics (``bench/metrics/<metric>.py``, a function ``read(run)``)."""
 from __future__ import annotations
@@ -9,6 +10,8 @@ import importlib.util
 import json
 from pathlib import Path
 from typing import Callable, List
+
+from layouts import layout_of
 
 BENCH = Path(__file__).resolve().parent.parent
 ROOT = BENCH.parent
@@ -37,6 +40,7 @@ def load_cell(name: str, root: Path = ROOT) -> Cell:
         raise KeyError(f"no workload {name!r} in BENCHMARK.json")
     cfg_entry = next(c for c in spec["configs"] if c["name"] == wl["config"])
     config = json.loads((root / cfg_entry["file"]).read_text())
+    layout_of(config)
     traffic = json.loads(
         (BENCH / "traffic" / f"{wl['traffic']}.json").read_text())
     limits = json.loads((BENCH / "limits" / f"{name}.json").read_text())

@@ -1,8 +1,8 @@
 """prefill_ms.batch: the mean device milliseconds (``device_ms``, CUDA
 events at the span's edges) of a fresh admission's ``prefill`` span in
-the engine's trace (the bucket's forward, the copy into the pool and the
-first token's sample), over the window's steps outside the profiled
-slice. A request's first ``prefill`` span is its fresh admission; a
+the engine's trace (the padded prefix's forward, the copy into the pool
+and the first token's sample), over the window's steps outside the
+profiled slice. A request's first ``prefill`` span is its fresh admission; a
 later one resumes it after a preemption."""
 from harness import spans
 

@@ -1,6 +1,6 @@
 """prefill_pad_share.batch: the share of the rows that the window's
 single-shot prefills ran that are padding: 100 * (1 - the prefix rows
-over the bucket rows), from the ``tokens`` and ``rows`` the engine puts
+over the rows launched), from the ``tokens`` and ``rows`` the engine puts
 on each ``prefill`` span's end, over every step of the window, in
 percent."""
 from harness import spans

@@ -9,8 +9,8 @@ sequence runs whole, prompt and served tokens together, one layer at a
 time (every sequence through layer l before layer l+1), so that only one
 layer's weights are held in float32 at a time and a 12B model fits
 beside nothing else on one card. The weights are regenerated from the
-run's seed by ``harness.weights``; nothing here imports the program or
-reads anything it made.
+run's seed by ``harness.weights`` in the order of ``layouts/dense.py``;
+nothing here imports the program or reads anything it made.
 
 Departures from the published models, all shared with the program: the
 weights are random (``harness.weights``), and RoPE's angles are taken in
@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from harness import weights as W
+from layouts import layout_of
 
 FP8_MAX = 448.0
 
@@ -136,7 +137,7 @@ def logits_at(cfg: dict, seed: int, seqs: Sequence[Tuple[List[int], int]],
     per entry of ``modes`` (``f32`` or ``fp8``). Returns
     ``{mode: [logits of each sequence]}``."""
     tf32_off()
-    d = W.dims(cfg)
+    d = layout_of(cfg).dims(cfg)
     emb = W.embed(cfg, seed, device).float()
     hs = {m: [emb[torch.as_tensor(t, device=device)] for t, _ in seqs]
           for m in modes}

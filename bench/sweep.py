@@ -41,7 +41,7 @@ def main(argv=None) -> int:
     from harness.spec import load_cell
     from harness.stats import percentile
     from harness.traffic import Traffic
-    from harness.weights import dims
+    from layouts import layout_of
 
     if not torch.cuda.is_available():
         print("error: no CUDA device", file=sys.stderr)
@@ -50,12 +50,13 @@ def main(argv=None) -> int:
     dev = torch.device("cuda:0")
     mcfg = system.model_config(cell.config)
     params = system.make_params(cell.config, mcfg, args.seed, dev)
+    V = layout_of(cell.config).dims(cell.config)["V"]
     for rate in (float(r) for r in args.rates.split(",")):
         mix = dict(cell.traffic,
                    load=dict(cell.traffic["load"], rate_per_s=rate))
         eng = system.make_engine(mcfg, params, cell.engine, dev)
-        drv = LoadLoop(eng, Traffic(mix, args.seed, dims(cell.config)["V"]),
-                     cell.engine, args.seconds)
+        drv = LoadLoop(eng, Traffic(mix, args.seed, V), cell.engine,
+                       args.seconds)
         drv.run_poisson(args.warmup, tail=False)
         w0, w1 = drv.window
         first = [(r.t_first - r.due) * 1e3 for r in drv.recs

@@ -8,8 +8,8 @@ from pathlib import Path
 BENCH = Path(__file__).resolve().parent.parent
 
 TINY = {
-    "name": "tiny-dense", "family": "dense", "hidden_size": 64,
-    "intermediate_size": 128, "num_hidden_layers": 2,
+    "name": "tiny-dense", "family": "dense", "layout": "dense",
+    "hidden_size": 64, "intermediate_size": 128, "num_hidden_layers": 2,
     "num_attention_heads": 4, "num_key_value_heads": 2, "head_dim": 16,
     "vocab_size": 500, "rope_theta": 10000.0, "rms_norm_eps": 1e-6,
     "tie_word_embeddings": False, "attention_bias": True,

@@ -10,6 +10,9 @@ from harness import flops
 from harness.serve import LoadLoop, Rec, Step
 from harness.stats import percentile
 from harness.traffic import Traffic, lengths
+from layouts import load_layout
+
+dense = load_layout("dense")
 
 # D 4, 2 query heads and 1 kv head of 2, F 3, L 2, V 10
 D = {"L": 2, "D": 4, "Hq": 2, "Hkv": 1, "hd": 2, "F": 3, "V": 10}
@@ -17,34 +20,34 @@ D = {"L": 2, "D": 4, "Hq": 2, "Hkv": 1, "hd": 2, "F": 3, "V": 10}
 
 def test_layer_weights_by_hand():
     # q 4x4, k and v 4x2 each, o 4x4, gate/up 4x3, down 3x4
-    assert flops.layer_weights(D) == 16 + 8 + 8 + 16 + 12 + 12 + 12
+    assert dense.layer_weights(D) == 16 + 8 + 8 + 16 + 12 + 12 + 12
 
 
 def test_prompt_flops_by_hand():
     # 3 tokens: products 2*84*2*3, pairs 6 a head and layer at 4*hd=8
     # FLOPs each over 2 heads and 2 layers, head 2*4*10 once
-    assert flops.prompt_flops(D, 3) == 2 * 84 * 2 * 3 + 8 * 6 * 2 * 2 + 80
+    assert dense.prompt_flops(D, 3) == 2 * 84 * 2 * 3 + 8 * 6 * 2 * 2 + 80
 
 
 def test_decode_flops_by_hand():
     # cache 5, two tokens: they see 6 and 7 keys
     want = 2 * (2 * 84 * 2 + 80) + 8 * (6 + 7) * 2 * 2
-    assert flops.decode_flops(D, 5, 2) == want
+    assert dense.decode_flops(D, 5, 2) == want
 
 
 def test_decode_flops_add_up_one_token_at_a_time():
-    assert flops.decode_flops(D, 9, 4) == sum(
-        flops.decode_flops(D, 9 + k, 1) for k in range(4))
+    assert dense.decode_flops(D, 9, 4) == sum(
+        dense.decode_flops(D, 9 + k, 1) for k in range(4))
 
 
 def test_prefill_attention_by_hand():
-    f, b = flops.prefill_attention(D, 4)
+    f, b = dense.prefill_attention(D, 4)
     assert f == 8 * 2 * 10 * 2           # 10 causal pairs of 4 rows
     assert b == 2 * 4 * 2 * (2 * 2 + 2 * 1) * 2
 
 
 def test_decode_attention_by_hand():
-    f, b = flops.decode_attention(D, [3, 17], slots=4, block_size=16)
+    f, b = dense.decode_attention(D, [3, 17], slots=4, block_size=16)
     assert f == 8 * 2 * (3 + 17) * 2
     per_layer = (2 * 4 * 2 * 2 * 2 + 4 * 4  # q, out, lengths: all slots
                  + 2 * 2 * 3 * 1 * 2 + 4 * 1 + 2 * 2 * 17 * 1 * 2 + 4 * 2)
@@ -57,18 +60,19 @@ def test_bound_takes_the_larger():
 
 
 def test_step_attention_bound_runs_every_iteration():
-    st = Step(0, 1, [(3, 8)], [(3, 2), (10, 1)], 3, 5, True, True)
-    want = flops.bound_s(*flops.prefill_attention(D, 8))
-    want += flops.bound_s(*flops.decode_attention(D, [4, 11], 4, 16))
-    want += flops.bound_s(*flops.decode_attention(D, [5], 4, 16))
-    want += 2 * flops.bound_s(*flops.decode_attention(D, [], 4, 16))
-    assert flops.step_attention_bound(D, st, 4, 16, 4) == pytest.approx(want)
+    st = Step(0, 1, [3], [(3, 2), (10, 1)], 3, 5, True, True)
+    want = flops.bound_s(*dense.prefill_attention(D, 8))
+    want += flops.bound_s(*dense.decode_attention(D, [4, 11], 4, 16))
+    want += flops.bound_s(*dense.decode_attention(D, [5], 4, 16))
+    want += 2 * flops.bound_s(*dense.decode_attention(D, [], 4, 16))
+    got = flops.step_attention_bound(dense, D, st, [8], 4, 16, 4)
+    assert got == pytest.approx(want)
 
 
 def test_mfu_work_of_a_step():
-    st = Step(0, 1, [(3, 8)], [(3, 2)], 3, 3, True, False)
-    assert flops.step_model_flops(D, st) == (flops.prompt_flops(D, 3)
-                                             + flops.decode_flops(D, 3, 2))
+    st = Step(0, 1, [3], [(3, 2)], 3, 3, True, False)
+    assert flops.step_model_flops(dense, D, st) == (
+        dense.prompt_flops(D, 3) + dense.decode_flops(D, 3, 2))
 
 
 MIX = {"prompt": {"dist": "lognormal", "median": 3072, "sigma": 0.6,
@@ -188,7 +192,7 @@ def test_backlog_window_is_whole_steps():
     assert sum(s.prompt_tokens for s in w) == sum(
         r.prompt_len for r in drv.recs if r.t_first in ends)
     first = next(s for s in drv.steps if s.admitted)
-    assert first.decode == [(n, 3) for n, _ in first.admitted]
+    assert first.decode == [(n, 3) for n in first.admitted]
     view = type("V", (), {"steps": drv.steps, "window": drv.window})()
     assert _metric("tokens_per_s")(view) == pytest.approx(
         sum(s.prompt_tokens + s.out_tokens for s in w)
@@ -207,7 +211,7 @@ class _View:
 
 
 def _rec(i, due, first, last=None, n=0, window=True):
-    r = Rec(i, None, 10, 16, due, window)
+    r = Rec(i, None, 10, due, window)
     r.t_first, r.t_last, r.n_last = first, last, n
     return r
 

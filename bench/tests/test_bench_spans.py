@@ -1,15 +1,17 @@
 """The readers of the engine's own spans (``harness.spans``): hand-worked
 values on a made-up trace, nothing from a trace without the spans or
-arguments they read (as a program without them gives), and, on a tiny
-traced run, the padding share against the harness's own records."""
+arguments they read (as a program without them gives), the attention
+bound at the rows the ``prefill`` spans report, and, on a tiny traced
+run, those rows against the engine's padding rule."""
 from types import SimpleNamespace
 
 import pytest
 
 from benchtiny import tiny_cell
-from harness import runner
+from harness import runner, spans
 from harness.serve import Step
 from harness.spec import reader
+from layouts import load_layout
 
 SEED = 2**31 + 977
 
@@ -103,9 +105,11 @@ def test_reader_without_its_spans_gives_none(name):
 
 
 def test_tiny_traced_run_pads_as_the_harness_reckons(monkeypatch):
-    """On the CPU the spans carry no device time; the padding share
-    equals the one the harness's own (prompt, bucket) records give, and
-    the step's self time is part of the step."""
+    """On the CPU the spans carry no device time. Each ``prefill`` span's
+    ``rows`` follow the engine's rule for a dense prefix (its tokens, the
+    prompt cut to ``pad_len``, padded to a multiple of the block size);
+    the padding share is the one those spans give; and the step's self
+    time is part of the step."""
     views = []
 
     class Keep(runner.RunView):
@@ -114,13 +118,83 @@ def test_tiny_traced_run_pads_as_the_harness_reckons(monkeypatch):
             views.append(self)
 
     monkeypatch.setattr(runner, "RunView", Keep)
-    out = runner.run(tiny_cell("backlog"), SEED, 1.5, True, "cpu", 0.0,
-                     log=lambda s: None)
+    cell = tiny_cell("backlog")
+    out = runner.run(cell, SEED, 1.5, True, "cpu", 0.0, log=lambda s: None)
     assert out["correct"] is True
     m = {k: v["value"] for k, v in out["metrics"].items()}
     assert "prefill_ms.batch" not in m and "decode_iter_ms.batch" not in m
-    adm = [a for s in views[0].steps if s.window for a in s.admitted]
-    assert adm
-    want = 100.0 * (1 - sum(p for p, _ in adm) / sum(b for _, b in adm))
+    view, e = views[0], cell.engine
+    steps = [s for s in view.steps if s.window]
+    rows = spans.prefill_rows(view, steps)
+    pre = [sp for g in spans.by_step(view, steps).values() for sp in g
+           if sp.name == "prefill"]
+    assert pre and len(pre) == sum(len(r) for r in rows)
+    assert sum(len(s.admitted) for s in steps) <= len(pre)
+    prompt = {r.i: r.prompt_len for r in view.recs}
+    seen = set()
+    for sp in pre:
+        n = sp.args["tokens"]
+        if sp.args["rid"] not in seen:
+            seen.add(sp.args["rid"])
+            assert n == min(prompt[sp.args["rid"]], e["pad_len"])
+        block = e["block_size"]
+        assert sp.args["rows"] == min(-(-n // block) * block, e["max_seq"])
+    want = 100.0 * (1 - sum(sp.args["tokens"] for sp in pre)
+                    / sum(sp.args["rows"] for sp in pre))
     assert m["prefill_pad_share.batch"] == pytest.approx(want)
     assert 0 < m["step_host_ms.batch"] < m["engine_step_ms.batch"]
+
+
+# D 4, 2 query heads and 1 kv head of 2, F 3, L 2, V 10
+D = {"L": 2, "D": 4, "Hq": 2, "Hkv": 1, "hd": 2, "F": 3, "V": 10}
+ENGINE = {"max_slots": 4, "block_size": 16, "steps_per_sync": 2}
+
+
+def _roofline_run(rows=True, spent=1e-6):
+    """Two profiled steps: the first prefills a prompt of 5 tokens into 16
+    rows and decodes two slots; the second decodes one slot."""
+    ev = []
+    end = {"tokens": 5, **({"rows": 16} if rows else {})}
+    _span(ev, "prefill", 1, 0.1, 0.2, {"rid": 0, "tokens": 5}, end)
+    steps = [Step(0.0, 0.5, [5], [(5, 2), (30, 1)], 5, 3, True, True),
+             Step(0.6, 0.9, [], [(31, 1)], 0, 1, True, True)]
+    return SimpleNamespace(
+        spans=ev, steps=steps, layout=load_layout("dense"), d=D,
+        engine=ENGINE, trace=SimpleNamespace(by_class={"attention": spent}))
+
+
+def test_attention_bound_reads_the_launched_rows():
+    """By hand: prefill of 16 rows, 4 * hd * Hq * 16 * 17 / 2 FLOPs and
+    2 B * 16 rows * hd * (2 Hq + 2 Hkv) of q, k, v, out, each over L
+    layers; then per decode iteration 4 * hd * Hq FLOPs a key, and 2 B of
+    q and of out per slot, query head and head dim, 4 B of length per
+    slot, 2 B of k and of v per key, kv head and head dim, 4 B per block
+    of each active slot's table."""
+    flops_pre = 4 * 2 * 2 * (16 * 17 / 2) * 2                   # 2176
+    bytes_pre = 2 * 16 * 2 * (2 * 2 + 2 * 1) * 2                 # 768
+    fixed = 2 * 4 * 2 * 2 * 2 + 4 * 4                            # 80
+
+    def it(wins):
+        f = sum(4 * 2 * 2 * w for w in wins) * 2
+        b = (fixed + sum(2 * 2 * w * 1 * 2 + 4 * -(-w // 16)
+                         for w in wins)) * 2
+        return max(f / 989e12, b / 3.35e12)
+
+    want = max(flops_pre / 989e12, bytes_pre / 3.35e12)
+    want += it([6, 31]) + it([7])                    # step 1, 2 iterations
+    want += it([32]) + it([])                        # step 2
+    got = reader("attn_roofline.batch")(_roofline_run(spent=1e-6))
+    assert got == pytest.approx(100.0 * want / 1e-6)
+
+
+@pytest.mark.parametrize("case", ["no spans", "no rows", "a chunk",
+                                  "a lost span"])
+def test_attention_bound_without_the_rows_gives_none(case):
+    run = _roofline_run(rows=case != "no rows")
+    if case == "no spans":
+        run.spans = None
+    elif case == "a chunk":
+        _span(run.spans, "prefill_chunk", 2, 0.7, 0.8, {"rid": 1})
+    elif case == "a lost span":
+        run.steps[1].admitted.append(9)
+    assert reader("attn_roofline.batch")(run) is None
