@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --phase dist   # phases 1, 2 and 9 alone
     python3 chip_smoke.py --phase spmd   # phases 1, 2 and 11 alone
+    python3 chip_smoke.py --phase mla    # phases 1, 2 and 3c alone
 
 Phases, in order; any failure exits non-zero:
   1. device  — requires CUDA; prints the card's name and power limit.
@@ -55,6 +56,21 @@ Phases, in order; any failure exits non-zero:
                expert rebalancer on one layer's counts over 8 ranks (the
                permuted layer must give the same output). The weights are
                freed before the next phase.
+  3c. mla    — Moonlight-16B-A3B's two MLA kernels at its benchmark
+               cell's shapes, bf16: flash_attention at qk 192 / v 128 (16
+               heads) on prompts of 3,072 and 7,712 tokens against
+               attention_ref, timed beside scaled_dot_product_attention;
+               mla_paged_decode over 64 slots of 1,224-7,821 latent rows
+               (576, values 512, blocks of 16) against
+               mla_paged_decode_ref, and with an idle slot (zeros). Each
+               timed beside its plain version and its bound (bytes read
+               once, pair FLOPs). Then Moonlight at full width, 4 of its
+               27 layers, serving 12 requests of 1,224-7,712 prompt tokens
+               through the paged engine, the launch counts reset just
+               before: flash_attention once a layer an admission,
+               mla_paged_decode once a layer a decode iteration, gmm
+               three times a routed layer a forward, and no GQA attention
+               kernel. Their rows join the kernels line.
   4. serve   — tinyllama-1.1b at full width (22 layers, random weights
                from a seed, bf16) serving 16 requests through the engine
                in its three modes: contiguous, paged, and paged with
@@ -1258,6 +1274,212 @@ def _moe_parity(cfg, params):
         if not same:
             fail(f"the permuted MoE layer ({name}) does not compute the "
                  "same output")
+
+
+# ------------------------------------------------------------ phase 3c
+# Moonlight-16B-A3B's attention at its benchmark cell's shapes (the docqa
+# traffic on 64 slots): the expanded prefill (qk 192, v 128, 16 heads)
+# of a median prompt (3,072 tokens) and the longest (7,712), and one
+# decode iteration of 64 slots whose windows span the cell's (1,224 to
+# 7,821 keys) over the pool of latent rows (576 wide, values its first
+# 512, blocks of 16). Then a served run at Moonlight's widths, its depth
+# cut to MLA_LAYERS, whose launches the two kernels must account for.
+MLA_HEADS, MLA_QK, MLA_V = 16, 192, 128
+MLA_DK, MLA_DV = 576, 512
+MLA_PROMPTS = (3072, 7712)
+MLA_SLOTS, MLA_WINDOWS = 64, (1224, 7821)
+MLA_LAYERS = 4                  # one dense layer, three routed
+MLA_SERVE = dict(max_slots=8, max_seq=8192, pad_len=8064, steps_per_sync=8,
+                 paged=True, block_size=BLOCK)
+MLA_N_REQ = 12
+MLA_SOURCES = {"flash_attention": "src/repro_torch/csrc/attention_tc.cu",
+               "mla_paged_decode": "src/repro_torch/csrc/mla_decode.cu"}
+
+
+def _mla_cases(rng):
+    """(kernel, label, kernel fn, plain fn, library fn or None, bytes,
+    flops) at the cell's shapes, bf16; the bytes read each input once and
+    write the output once, the flops count each (query, visible key)
+    pair's two products."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mla_decode as md
+
+    el = 2
+    rnd = lambda *s: torch.from_numpy(
+        rng.standard_normal(s).astype(np.float32)).to(DEVICE, torch.bfloat16)
+    H = MLA_HEADS
+    cases = []
+    for S in MLA_PROMPTS:
+        q, k = rnd(1, S, H, MLA_QK), rnd(1, S, H, MLA_QK)
+        v = rnd(1, S, H, MLA_V)
+        lib = (lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True))
+        cases.append((
+            "flash_attention", f"prefill {S}",
+            lambda q=q, k=k, v=v: fa.flash_attention(q, k, v, causal=True),
+            lambda q=q, k=k, v=v: fa.attention_ref(q, k, v, causal=True),
+            lib, el * S * H * (2 * MLA_QK + 2 * MLA_V),
+            2 * H * (MLA_QK + MLA_V) * S * (S + 1) // 2))
+    mb = 8192 // BLOCK
+    scale = 1.0 / math.sqrt(MLA_QK)
+    for label, idle in (("decode 64 slots", False),
+                        ("decode, an idle slot", True)):
+        lens = rng.integers(MLA_WINDOWS[0], MLA_WINDOWS[1] + 1, MLA_SLOTS)
+        lens[:2] = MLA_WINDOWS
+        if idle:
+            lens[3] = 0
+        nb = sum(-(-int(n) // BLOCK) for n in lens)
+        pool = rnd(nb + 8, BLOCK, MLA_DK)
+        bt = torch.as_tensor(_tables(rng, [int(n) for n in lens], mb,
+                                     nb + 8), device=DEVICE)
+        ln = torch.as_tensor(lens.astype(np.int32), device=DEVICE)
+        q = rnd(MLA_SLOTS, H, MLA_DK)
+        kw = dict(v_dim=MLA_DV, scale=scale)
+        n = int(lens.sum())
+        cases.append((
+            "mla_paged_decode", label,
+            lambda q=q, p=pool, bt=bt, ln=ln: md.mla_paged_decode(
+                q, p, bt, ln, **kw),
+            lambda q=q, p=pool, bt=bt, ln=ln: md.mla_paged_decode_ref(
+                q, p, bt, ln, **kw),
+            None, el * (MLA_SLOTS * H * (MLA_DK + MLA_DV) + n * MLA_DK)
+            + 4 * (MLA_SLOTS + nb), 2 * H * (MLA_DK + MLA_DV) * n))
+    return cases
+
+
+def kernel_mla(rng):
+    """The MLA kernels against their plain versions at the cell's shapes;
+    returns the rows of the timed shapes (the longest prompt for
+    ``flash_attention``)."""
+    import torch
+
+    rows = {}
+    for name, label, kern, plain, lib, nbytes, flops in _mla_cases(rng):
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            fail(f"{name}/{label}: non-finite output")
+        err = (got.float() - want.float()).abs().max().item()
+        ok = err <= TOL["bfloat16"]
+        if "idle" in label:
+            ok = ok and bool((got[3] == 0).all())   # an idle slot: zeros
+        log(f"[mla] {name:16s} {label:20s} max_abs_err {err:.3e} (tol "
+            f"{TOL['bfloat16']:g}) {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"{name}/{label} disagrees with its plain version: {err}")
+        if "idle" in label:
+            continue
+        bound_b = nbytes / PEAK_BYTES * 1e3
+        bound_f = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        ms, eager = time_ms(kern)
+        plain_ms, plain_eager = time_ms(plain)
+        lib_ms, lib_eager = time_ms(lib) if lib is not None else (None,
+                                                                   None)
+        row = dict(
+            name=name, shape=label, route="cuda", source=MLA_SOURCES[name],
+            replaces=None, launches=0, max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, bound_ms=max(bound_b, bound_f),
+            bound_by="bytes" if bound_b >= bound_f else "operations",
+            library_ms=lib_ms)
+        rows[name] = row
+        lib_txt = (f"library_ms {lib_ms:.4f} (eagerly {lib_eager:.4f}) "
+                   if lib is not None else "")
+        log(f"[mla] {name:16s} {label:20s} kernel_ms {ms:.4f} plain_ms "
+            f"{plain_ms:.4f} {lib_txt}bound_ms {row['bound_ms']:.5f} "
+            f"({row['bound_by']}: {nbytes} B, {flops} flop); issued "
+            f"eagerly: kernel {eager:.4f} plain {plain_eager:.4f} ms")
+    return rows
+
+
+def _mla_requests(rng, vocab, n=MLA_N_REQ):
+    from repro_torch.serve import Request
+
+    return [Request(rid=i, prompt=[int(t) for t in rng.integers(
+        1, vocab, int(rng.integers(1224, 7713)))],
+        max_new=int(rng.integers(9, 110))) for i in range(n)]
+
+
+def phase_mla():
+    """The MLA kernels at the Moonlight cell's shapes, then a served run
+    at Moonlight's widths (MLA_LAYERS deep) through ``Engine(paged=True)``
+    with the launch counts reset just before it: ``flash_attention``
+    launches once a layer an admission, ``mla_paged_decode`` once a layer
+    a decode iteration, ``gmm`` three times a routed layer a forward.
+    Returns the two kernels' rows with those launches."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_lm
+    from repro_torch.models.config import MLAConfig
+    from repro_torch.serve import Engine
+
+    rows = kernel_mla(np.random.default_rng(0))
+    torch.cuda.empty_cache()
+    cfg = MLAConfig(
+        name="moonlight-16b-a3b", family="moe", n_layers=MLA_LAYERS,
+        d_model=2048, n_heads=MLA_HEADS, n_kv_heads=MLA_HEADS, d_ff=11264,
+        vocab=163840, rope_theta=50000.0, norm_eps=1e-5,
+        tie_embeddings=False, n_experts=64, top_k=6, kv_lora_rank=512,
+        qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128,
+        moe_d_ff=1408, n_shared_experts=2, first_k_dense=1,
+        routed_scale=2.446, dtype="bfloat16")
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    params = init_lm(cfg, gen, device=DEVICE)
+    for blk in params["blocks"][1:]:
+        blk["moe"]["router_bias"].normal_(0.0, 0.02, generator=gen)
+    eng = Engine(cfg, params, device=DEVICE, **MLA_SERVE)
+    reqs = _mla_requests(np.random.default_rng(2), cfg.vocab)
+    loops = [0]
+    decode_n = eng._decode_n
+
+    def counted(*a):
+        loops[0] += 1
+        return decode_n(*a)
+
+    eng._decode_n = counted
+    torch.cuda.synchronize()
+    ops.reset_launches()               # counts of this run only
+    t0 = time.time()
+    n = _serve(eng, reqs)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = ops.kernel_launches()
+    if not all(r.done for r in reqs):
+        fail(f"mla: {sum(not r.done for r in reqs)} requests unfinished "
+             f"after {n} steps")
+    for r in reqs:
+        if not r.out or min(r.out) < 0 or max(r.out) >= cfg.vocab:
+            fail(f"mla: request {r.rid} emitted bad ids")
+    st = eng.stats()
+    adm = int(st["admissions"])
+    iters = loops[0] * MLA_SERVE["steps_per_sync"]
+    want = {"flash_attention": adm * MLA_LAYERS,
+            "mla_paged_decode": iters * MLA_LAYERS,
+            "gmm": 3 * (MLA_LAYERS - 1) * (adm + iters)}
+    log(f"[mla] served {len(reqs)} requests ({adm} admissions of 1,224-"
+        f"7,712 tokens, {int(st['tokens_out'])} tokens out) at Moonlight's "
+        f"widths, {MLA_LAYERS} layers, in {wall:.2f} s over {n} engine "
+        f"steps ({iters} decode iterations); launches {counts}")
+    for name, c in want.items():
+        if counts[name] != c:
+            fail(f"mla: {name} launched {counts[name]} times, not {c}")
+    for name in ("paged_decode", "flash_decode", "paged_prefill"):
+        if counts[name]:
+            fail(f"mla: {name} launched on the latent path")
+    for name in rows:
+        rows[name]["launches"] = counts[name]
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [rows["flash_attention"], rows["mla_paged_decode"]]
 
 
 def _impl_cfg(cfg, impl):
@@ -4605,9 +4827,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke test of the PyTorch/"
                                  "CUDA port on one GPU (see the module "
                                  "docstring).")
-    ap.add_argument("--phase", choices=("dist", "spmd"),
+    ap.add_argument("--phase", choices=("dist", "spmd", "mla"),
                     help="run phases 1, 2 and this one alone (dist at its "
-                    "uncut sizes), and print no result lines")
+                    "uncut sizes); mla prints its kernels' line, the "
+                    "others no result lines")
     opts = ap.parse_args()
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke FAILED: src/repro_torch not found beside "
@@ -4631,6 +4854,8 @@ def main() -> int:
     if opts.phase:
         if opts.phase == "dist":
             timed(phase_dist, smi, "alone")
+        elif opts.phase == "mla":
+            print(json.dumps({"kernels": timed(phase_mla)}))
         else:
             timed(phase_spmd, smi)
         log(f"[time] all phases: {time.time() - t_start:.1f} s")
@@ -4638,6 +4863,7 @@ def main() -> int:
         return 0
     rows = timed(phase_kernels)
     moe_launches = timed(phase_moe)
+    mla_rows = timed(phase_mla)
     params, totals, steps = timed(phase_serve)
     timed(phase_profile, params)
     mamba, ssd_launches = timed(phase_fabric)
@@ -4689,7 +4915,7 @@ def main() -> int:
         f"{uts_launches} in the UTS run on {UTS_P} places, "
         f"{dist['uts_expand']} over the dist phase's UTS ranks")
     log(f"[summary] card: {smi}")
-    print(json.dumps({"kernels": [rows[n] for n in REPLACES]}))
+    print(json.dumps({"kernels": [rows[n] for n in REPLACES] + mla_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

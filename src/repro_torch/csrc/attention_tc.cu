@@ -18,7 +18,11 @@
 // max_blocks); row i sits at q_offset[b] + i and sees keys pos <=
 // q_offset[b] + i and pos < lengths[b] (table entries past the
 // allocation are clamped into the pool and never read, being past the
-// window). A row that sees no key outputs zeros. Output in bf16, softmax
+// window). flash_attention also takes V (and the output) narrower than Q
+// and K: D 192 / Dv 128 is MLA's expanded prefill (models/mla.py: per
+// head a 128-wide k_nope and the 64-wide shared RoPE key, 128-wide
+// values), the same tile loop with the two widths as template
+// parameters. A row that sees no key outputs zeros. Output in bf16, softmax
 // and sums in float32. Both share one block routine (prefill_block), which
 // takes the key rows' addressing as a policy (dense or through the table)
 // and the position of row 0 (the causal origin).
@@ -108,57 +112,60 @@ constexpr int kPad = 8;             // bf16 elements of padding per row
 constexpr int kMaxCluster = 8;      // the portable cluster size limit
 constexpr int kShareAlign = 16;     // a cluster block's share of the keys
 
-// Q tile + two stages of K and V + the stages' row offsets.
-template <int D>
+// Q tile + two stages of K and V + the stages' row offsets; Q and K rows
+// are D wide, V rows Dv.
+template <int D, int Dv>
 __host__ __device__ constexpr size_t smem_bytes() {
-  return static_cast<size_t>(kBM + 4 * kBN) * (D + kPad) * sizeof(bf16)
+  return (static_cast<size_t>(kBM + 2 * kBN) * (D + kPad)
+          + 2 * kBN * (Dv + kPad)) * sizeof(bf16)
          + 2 * kBN * sizeof(int64_t);
 }
 
 // The cluster merge's floats (a block's published o, m, l) reuse the
 // tiles once the last one is consumed; o rows padded by 4 floats.
-template <int D>
+template <int Dv>
 __host__ __device__ constexpr size_t merge_bytes() {
-  return (static_cast<size_t>(kBM) * (D + 4) + 2 * kBM) * sizeof(float);
+  return (static_cast<size_t>(kBM) * (Dv + 4) + 2 * kBM) * sizeof(float);
 }
 
-// K/V row addressing: element offset of the (pos, KV head) row.
-struct DenseRows {         // (B, S, Hkv, D) contiguous keys
+// K/V row addressing: the index of the (pos, KV head) row, in rows of one
+// head (a K row's elements start at index * D, a V row's at index * Dv).
+struct DenseRows {         // (B, S, Hkv, .) contiguous keys
   static constexpr bool kIndirect = false;
-  int64_t base;            // offset of (b, pos 0, head)
-  int64_t stride;          // Hkv * D
+  int64_t base;            // index of (b, pos 0, head)
+  int64_t stride;          // Hkv
   __device__ int64_t operator()(int pos) const {
     return base + static_cast<int64_t>(pos) * stride;
   }
 };
 
-struct PagedRows {         // (NB, Bs, Hkv, D) pool through a block table
+struct PagedRows {         // (NB, Bs, Hkv, .) pool through a block table
   static constexpr bool kIndirect = true;   // offsets computed a tile ahead
   const int* table;        // this sequence's row of block_tables
   int block_size;
   int num_blocks;
-  int64_t head_off;        // head * D
-  int64_t row_stride;      // Hkv * D
+  int64_t head;            // the KV head
+  int64_t heads;           // Hkv
   __device__ int64_t operator()(int pos) const {
     // Garbage entries past the allocation are clamped into the pool; only
     // positions inside the window get here.
     int phys = table[pos / block_size];
     phys = min(max(phys, 0), num_blocks - 1);
     return (static_cast<int64_t>(phys) * block_size + pos % block_size)
-               * row_stride + head_off;
+               * heads + head;
   }
 };
 
-// One block: pairs [m0, m0 + 64) of one (sequence, KV head), pair m at
-// q_base + (m / G) * Hq * D + (m % G) * D (the same offset in out), of M
-// pairs in all. Row r sits at position origin + r; with causal it sees
-// keys pos <= origin + r, and every row sees keys pos < n, addressed by
-// rows(pos). The block has 4 * kSlices warps: warp w scores the 16 rows
-// w % 4 against slice w / 4 of the keys of every tile, and the slices
-// merge through shared memory at the end. With kSplit the block is one
-// of a cluster that shares those keys; every thread of every block of
-// the cluster must call it.
-template <int D, bool kSplit, int kSlices, class Rows>
+// One block: pairs [m0, m0 + 64) of one (sequence, KV head), pair m being
+// head row p = q_base + (m / G) * Hq + m % G (q at p * D, out at p * Dv),
+// of M pairs in all. Row r sits at position origin + r; with causal it
+// sees keys pos <= origin + r, and every row sees keys pos < n, whose row
+// indices are rows(pos). The block has 4 * kSlices warps: warp w scores
+// the 16 rows w % 4 against slice w / 4 of the keys of every tile, and
+// the slices merge through shared memory at the end. With kSplit the
+// block is one of a cluster that shares those keys; every thread of
+// every block of the cluster must call it.
+template <int D, int Dv, bool kSplit, int kSlices, class Rows>
 __device__ __forceinline__ void prefill_block(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, bf16* __restrict__ out, int64_t q_base,
@@ -166,20 +173,22 @@ __device__ __forceinline__ void prefill_block(
     float scale_log2) {
   constexpr int kT = kThreads * kSlices;   // threads of the block
   constexpr int KB = kBN / kSlices;        // keys of a tile a warp scores
-  constexpr int LD = D + kPad;      // shared-memory row, in elements
-  constexpr int CH = D / 8;         // 16-byte chunks of a row
+  constexpr int LD = D + kPad;      // Q and K shared-memory rows
+  constexpr int LDV = Dv + kPad;    // V shared-memory rows
+  constexpr int CH = D / 8;         // 16-byte chunks of a Q or K row
+  constexpr int CHV = Dv / 8;       // ... of a V row
   constexpr int KS = D / 16;        // k-steps of Q K^T
   constexpr int NT = KB / 8;        // 8-key column tiles of S
-  constexpr int PD = D + 4;         // a published o row, in floats
+  constexpr int PD = Dv + 4;        // a published o row, in floats
   static_assert(KB % 16 == 0, "a warp scores whole 16-key steps");
-  static_assert((kSlices > 1 ? kSlices - 1 : 1) * merge_bytes<D>()
-                    <= smem_bytes<D>(),
+  static_assert((kSlices > 1 ? kSlices - 1 : 1) * merge_bytes<Dv>()
+                    <= smem_bytes<D, Dv>(),
                 "the merges must fit in the tiles");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);    // [kBM][LD]
   bf16* ks = qs + kBM * LD;                         // [2][kBN][LD]
-  bf16* vs = ks + 2 * kBN * LD;                     // [2][kBN][LD]
-  int64_t* roff = reinterpret_cast<int64_t*>(vs + 2 * kBN * LD);  // [2][kBN]
+  bf16* vs = ks + 2 * kBN * LD;                     // [2][kBN][LDV]
+  int64_t* roff = reinterpret_cast<int64_t*>(vs + 2 * kBN * LDV);  // [2][kBN]
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int rg = warp % kWarps, slice = warp / kWarps;
 
@@ -201,14 +210,13 @@ __device__ __forceinline__ void prefill_block(
   const int n_tiles = (hi - lo + kBN - 1) / kBN;
   const int clean_end = min(full_end, hi);      // no mask below this key
 
-  auto pair_off = [&](int m) {
-    return q_base + static_cast<int64_t>(m / G) * Hq * D
-           + static_cast<int64_t>(m % G) * D;
+  auto pair_row = [&](int m) {
+    return q_base + static_cast<int64_t>(m / G) * Hq + m % G;
   };
   for (int i = tid; i < kBM * CH; i += kT) {
     const int r = i / CH, c = (i % CH) * 8, m = m0 + r;
     const bool ok = m < M;                         // else a zero row
-    tc::cp_async16(qs + r * LD + c, q + (ok ? pair_off(m) + c : 0),
+    tc::cp_async16(qs + r * LD + c, q + (ok ? pair_row(m) * D + c : 0),
                    ok ? 16 : 0);
   }
   tc::cp_async_commit();
@@ -223,14 +231,26 @@ __device__ __forceinline__ void prefill_block(
   auto load_tile = [&](int tile) {
     if (tile >= n_tiles) return;
     bf16* kd = ks + (tile & 1) * kBN * LD;
-    bf16* vd = vs + (tile & 1) * kBN * LD;
+    bf16* vd = vs + (tile & 1) * kBN * LDV;
     const int64_t* ro = roff + (tile & 1) * kBN;
     for (int i = tid; i < kBN * CH; i += kT) {
       const int r = i / CH, c = (i % CH) * 8;
       const int64_t off = Rows::kIndirect ? ro[r] : row_off(tile, r);
       const bool ok = off >= 0;                    // else a zero row
-      tc::cp_async16(kd + r * LD + c, k + (ok ? off + c : 0), ok ? 16 : 0);
-      tc::cp_async16(vd + r * LD + c, v + (ok ? off + c : 0), ok ? 16 : 0);
+      tc::cp_async16(kd + r * LD + c, k + (ok ? off * D + c : 0),
+                     ok ? 16 : 0);
+      if constexpr (Dv == D)
+        tc::cp_async16(vd + r * LDV + c, v + (ok ? off * Dv + c : 0),
+                       ok ? 16 : 0);
+    }
+    if constexpr (Dv != D) {
+      for (int i = tid; i < kBN * CHV; i += kT) {
+        const int r = i / CHV, c = (i % CHV) * 8;
+        const int64_t off = Rows::kIndirect ? ro[r] : row_off(tile, r);
+        const bool ok = off >= 0;
+        tc::cp_async16(vd + r * LDV + c, v + (ok ? off * Dv + c : 0),
+                       ok ? 16 : 0);
+      }
     }
   };
   fill_offsets(0);
@@ -243,9 +263,9 @@ __device__ __forceinline__ void prefill_block(
   const int mA = m0 + rg * 16 + (lane >> 2);
   const int lim[2] = {causal ? mA / G + origin : INT_MAX,
                       causal ? (mA + 8) / G + origin : INT_MAX};
-  float o[D / 8][4];
+  float o[Dv / 8][4];
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i)
+  for (int i = 0; i < Dv / 8; ++i)
     o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
   float mrow[2] = {-INFINITY, -INFINITY};
   float lrow[2] = {0.f, 0.f};
@@ -265,7 +285,7 @@ __device__ __forceinline__ void prefill_block(
                                 + (lane >> 4) * 8);
     }
     const bf16* kt = ks + ((j & 1) * kBN + slice * KB) * LD;
-    const bf16* vt = vs + ((j & 1) * kBN + slice * KB) * LD;
+    const bf16* vt = vs + ((j & 1) * kBN + slice * KB) * LDV;
 
     float s[NT][4];
 #pragma unroll
@@ -325,7 +345,7 @@ __device__ __forceinline__ void prefill_block(
       }
       lrow[h] = lrow[h] * corr + sum;
 #pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
+      for (int dt = 0; dt < Dv / 8; ++dt) {
         o[dt][2 * h] *= corr;
         o[dt][2 * h + 1] *= corr;
       }
@@ -339,10 +359,10 @@ __device__ __forceinline__ void prefill_block(
           tc::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
           tc::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
+      for (int dp = 0; dp < Dv / 16; ++dp) {
         uint32_t r[4];
         tc::ldsm_x4_t(r, vt + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7))
-                                  * LD
+                                  * LDV
                              + dp * 16 + (lane >> 4) * 8);
         tc::mma_bf16(o[2 * dp], a, r[0], r[1]);
         tc::mma_bf16(o[2 * dp + 1], a, r[2], r[3]);
@@ -373,7 +393,7 @@ __device__ __forceinline__ void prefill_block(
       }
       float* dst = po + row * PD + (lane & 3) * 2;
 #pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt)
+      for (int dt = 0; dt < Dv / 8; ++dt)
         *reinterpret_cast<float2*>(dst + dt * 8) =
             make_float2(o[dt][2 * h], o[dt][2 * h + 1]);
     }
@@ -397,7 +417,7 @@ __device__ __forceinline__ void prefill_block(
           lrow[h] = lrow[h] * f0 + po[kBM * PD + kBM + row] * fs;
           const float* src = po + row * PD + (lane & 3) * 2;
 #pragma unroll
-          for (int dt = 0; dt < D / 8; ++dt) {
+          for (int dt = 0; dt < Dv / 8; ++dt) {
             const float2 x = *reinterpret_cast<const float2*>(src + dt * 8);
             o[dt][2 * h] = o[dt][2 * h] * f0 + x.x * fs;
             o[dt][2 * h + 1] = o[dt][2 * h + 1] * f0 + x.y * fs;
@@ -414,9 +434,9 @@ __device__ __forceinline__ void prefill_block(
       const float inv = lrow[h] > 0.f ? 1.f / lrow[h] : 0.f;   // no key -> 0
       const int m = mA + 8 * h;
       if (m >= M) continue;
-      bf16* dst = out + pair_off(m) + (lane & 3) * 2;
+      bf16* dst = out + pair_row(m) * Dv + (lane & 3) * 2;
 #pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt)
+      for (int dt = 0; dt < Dv / 8; ++dt)
         *reinterpret_cast<__nv_bfloat162*>(dst + dt * 8) =
             __floats2bfloat162_rn(o[dt][2 * h] * inv,
                                   o[dt][2 * h + 1] * inv);
@@ -432,8 +452,8 @@ __device__ __forceinline__ void prefill_block(
     cluster.sync();                 // every block's partial is published
 
     // Block `rank` takes every c-th group of 4 outputs of the tile.
-    for (int i = rank * kT + tid; i < kBM * (D / 4); i += c * kT) {
-      const int row = i / (D / 4), col = (i % (D / 4)) * 4;
+    for (int i = rank * kT + tid; i < kBM * (Dv / 4); i += c * kT) {
+      const int row = i / (Dv / 4), col = (i % (Dv / 4)) * 4;
       if (m0 + row >= M) continue;
       float mr[kMaxCluster];
       float mx = -INFINITY;
@@ -460,8 +480,8 @@ __device__ __forceinline__ void prefill_block(
         }
       }
       const float inv = l > 0.f ? 1.f / l : 0.f;   // no visible key -> 0
-      __nv_bfloat162* dst =
-          reinterpret_cast<__nv_bfloat162*>(out + pair_off(m0 + row) + col);
+      __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(
+          out + pair_row(m0 + row) * Dv + col);
       dst[0] = __floats2bfloat162_rn(acc.x * inv, acc.y * inv);
       dst[1] = __floats2bfloat162_rn(acc.z * inv, acc.w * inv);
     }
@@ -469,8 +489,9 @@ __device__ __forceinline__ void prefill_block(
   }
 }
 
-// grid (ceil(Sq * G / 64), Hkv, B), 128 threads.
-template <int D>
+// grid (ceil(Sq * G / 64), Hkv, B), 128 threads; q and k rows D wide, v
+// and out rows Dv.
+template <int D, int Dv>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_tc_kernel(const bf16* __restrict__ q,
                           const bf16* __restrict__ k,
@@ -479,11 +500,11 @@ flash_attention_tc_kernel(const bf16* __restrict__ q,
                           float scale_log2) {
   const int G = Hq / Hkv;
   const int b = blockIdx.z, hk = blockIdx.y;
-  const DenseRows rows{(static_cast<int64_t>(b) * Skv * Hkv + hk) * D,
-                       static_cast<int64_t>(Hkv) * D};
-  prefill_block<D, false, 1>(
+  const DenseRows rows{static_cast<int64_t>(b) * Skv * Hkv + hk,
+                       static_cast<int64_t>(Hkv)};
+  prefill_block<D, Dv, false, 1>(
       q, k, v, out,
-      (static_cast<int64_t>(b) * Sq * Hq + static_cast<int64_t>(hk) * G) * D,
+      static_cast<int64_t>(b) * Sq * Hq + static_cast<int64_t>(hk) * G,
       G, Hq, Sq * G, (gridDim.x - 1 - blockIdx.x) * kBM, Skv - Sq,
       causal != 0, Skv, rows, scale_log2);
 }
@@ -514,12 +535,11 @@ paged_prefill_tc_kernel(const bf16* __restrict__ q,
   if constexpr (kSplit) c = static_cast<int>(cg::this_cluster().num_blocks());
   const int n = min(max(lengths[b], 0), max_blocks * block_size);
   const PagedRows rows{block_tables + static_cast<int64_t>(b) * max_blocks,
-                       block_size, num_blocks,
-                       static_cast<int64_t>(hk) * D,
-                       static_cast<int64_t>(Hkv) * D};
-  prefill_block<D, kSplit, kPrefillSlices<D>>(
+                       block_size, num_blocks, static_cast<int64_t>(hk),
+                       static_cast<int64_t>(Hkv)};
+  prefill_block<D, D, kSplit, kPrefillSlices<D>>(
       q, k, v, out,
-      (static_cast<int64_t>(b) * Sq * Hq + static_cast<int64_t>(hk) * G) * D,
+      static_cast<int64_t>(b) * Sq * Hq + static_cast<int64_t>(hk) * G,
       G, Hq, Sq * G, (gridDim.x / c - 1 - blockIdx.x / c) * kBM,
       q_offset[b], true, n, rows, scale_log2);
 }
@@ -556,11 +576,11 @@ struct FlashAttentionLaunch {
   const bf16 *q, *k, *v; bf16* out;
   int B, Sq, Skv, Hq, Hkv, causal; float scale_log2;
   cudaStream_t st;
-  template <int D> cudaError_t run() const {
+  template <int D, int Dv = D> cudaError_t run() const {
     const dim3 grid((Sq * (Hq / Hkv) + kBM - 1) / kBM, Hkv, B);
-    return launch<flash_attention_tc_kernel<D>>(
-        grid, kThreads, 1, smem_bytes<D>(), st, q, k, v, out, Sq, Skv, Hq,
-        Hkv, causal, scale_log2);
+    return launch<flash_attention_tc_kernel<D, Dv>>(
+        grid, kThreads, 1, smem_bytes<D, Dv>(), st, q, k, v, out, Sq, Skv,
+        Hq, Hkv, causal, scale_log2);
   }
 };
 
@@ -573,11 +593,11 @@ struct PagedPrefillLaunch {
     constexpr int threads = kThreads * kPrefillSlices<D>;
     if (c > 1) {
       return launch<paged_prefill_tc_kernel<D, true>>(
-          grid, threads, c, smem_bytes<D>(), st, q, k, v, out, tables,
+          grid, threads, c, smem_bytes<D, D>(), st, q, k, v, out, tables,
           lengths, offsets, NB, Bs, MB, Sq, Hq, Hkv, scale_log2);
     }
     return launch<paged_prefill_tc_kernel<D, false>>(
-        grid, threads, 1, smem_bytes<D>(), st, q, k, v, out, tables,
+        grid, threads, 1, smem_bytes<D, D>(), st, q, k, v, out, tables,
         lengths, offsets, NB, Bs, MB, Sq, Hq, Hkv, scale_log2);
   }
 };
@@ -607,21 +627,23 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 extern "C" {
 
-// bf16 q, k, v, out, contiguous, 16-byte aligned; D in {16, 32, 64, 112,
-// 128};
-// B, Sq, Hkv >= 1, Skv >= 0. Anything else returns cudaErrorInvalidValue
-// unlaunched.
+// bf16 q, k, v, out, contiguous, 16-byte aligned; q and k rows D wide, v
+// and out rows Dv: Dv = D in {16, 32, 64, 112, 128}, or (D, Dv) = (192,
+// 128), MLA's expanded prefill; B, Sq, Hkv >= 1, Skv >= 0. Anything else
+// returns cudaErrorInvalidValue unlaunched.
 int repro_flash_attention_tc(const void* q, const void* k, const void* v,
                              void* out, int B, int Sq, int Skv, int Hq,
-                             int Hkv, int D, int causal, float scale,
+                             int Hkv, int D, int Dv, int causal, float scale,
                              void* stream) {
-  if (bad_shape(B, Sq, Hq, Hkv) || Skv < 0) {
+  if (bad_shape(B, Sq, Hq, Hkv) || Skv < 0 ||
+      (Dv != D && (D != 192 || Dv != 128))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const FlashAttentionLaunch f{
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), B, Sq, Skv, Hq,
       Hkv, causal, scale * kLog2e, static_cast<cudaStream_t>(stream)};
+  if (Dv != D) return static_cast<int>(f.run<192, 128>());
   return static_cast<int>(dispatch(D, f));
 }
 

@@ -1,7 +1,7 @@
 """Build and load the CUDA kernels of ``csrc/*.cu``.
 
 Each source (``attention.cu``, ``attention_tc.cu``, ``decode_tc.cu``,
-``ssd.cu``, ``uts.cu``, ``gmm.cu``) is compiled by ``nvcc`` for
+``mla_decode.cu``, ``ssd.cu``, ``uts.cu``, ``gmm.cu``) is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library of its own with a plain C interface (no
 PyTorch headers, so it builds in seconds) and loaded with ctypes. The builds land in
 ``build/repro_torch/`` at the root of the checkout, each named by a hash
@@ -26,8 +26,8 @@ import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = {name: _PKG / "csrc" / f"{name}.cu"
-           for name in ("attention", "attention_tc", "decode_tc", "ssd",
-                        "uts", "gmm")}
+           for name in ("attention", "attention_tc", "decode_tc",
+                        "mla_decode", "ssd", "uts", "gmm")}
 HEADERS = sorted((_PKG / "csrc").glob("*.cuh"))
 BUILD_DIR = _PKG.parent.parent / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -56,9 +56,9 @@ SIGNATURES = {
                                 _I, _I, _I, _I, _I, _F, _I, _I, _P],
     },
     "attention_tc": {
-        # q, k, v, out, B, Sq, Skv, Hq, Hkv, D, causal, scale, stream
+        # q, k, v, out, B, Sq, Skv, Hq, Hkv, D, Dv, causal, scale, stream
         "repro_flash_attention_tc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                     _I, _F, _P],
+                                     _I, _I, _F, _P],
         # q, k, v, out, tables, lengths, q_offset, B, Sq, NB, Bs,
         # max_blocks, Hq, Hkv, D, scale, cluster, stream
         "repro_paged_prefill_tc": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -72,6 +72,12 @@ SIGNATURES = {
         # scale, cluster, stream
         "repro_paged_decode_tc": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                   _I, _I, _I, _F, _I, _P],
+    },
+    "mla_decode": {
+        # q, pool, out, tables, lengths, B, NB, Bs, max_blocks, H, Dk, Dv,
+        # scale, cluster, stream
+        "repro_mla_paged_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   _I, _I, _F, _I, _P],
     },
     "ssd": {
         # dtype, x, dt, A, B, C, y, h, Bt, T, H, P, N, L, cluster, tile,
@@ -217,6 +223,18 @@ def decode_plan(batch: int, kv_heads: int, group: int) -> tuple:
     return c, (c, slices, batch)
 
 
+def latent_decode_plan(batch: int) -> tuple:
+    """(cluster size c, grid) of ``mla_paged_decode_kernel``
+    (``mla_decode.cu``): each slot is served by a cluster of c blocks
+    that split its keys, on a grid of (c, 1, batch); c is the largest
+    power of two up to 8 that keeps the grid within two blocks per SM of
+    an H100 (132 SMs), as ``decode_plan``. Static shapes only."""
+    c = 1
+    while c < MAX_CLUSTER and batch * c * 2 <= 2 * 132:
+        c *= 2
+    return c, (c, 1, batch)
+
+
 PREFILL_ROWS = 64    # (query row, head) pairs a bf16 prefill block serves
 PREFILL_CLUSTER = 4  # the cluster of a bf16 prefill grid that is split
 PREFILL_SPLIT_BLOCKS = 16   # ... when the grid has at most this many tiles
@@ -300,6 +318,10 @@ def ssd_plan(batch: int, T: int, heads: int, P: int, N: int, L: int,
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # the C side's dtype codes
 HEAD_DIMS = (16, 32, 64, 112, 128)
+# (q/k, v) widths beyond HEAD_DIMS: MLA's expanded prefill (qk 192, v 128,
+# bf16 flash_attention only) and its latent decode (mla_paged_decode)
+SPLIT_DIMS = ((192, 128),)
+LATENT_DIMS = ((576, 512),)
 
 
 def check_tensors(name: str, q, *tensors) -> int:
@@ -309,7 +331,11 @@ def check_tensors(name: str, q, *tensors) -> int:
     if code is None:
         raise TypeError(f"{name}: dtype {q.dtype} not supported "
                         "(float32 or bfloat16)")
-    if q.shape[-1] not in HEAD_DIMS:
+    if (q.shape[-1], tensors[-1].shape[-1]) in SPLIT_DIMS:
+        if q.dtype != torch.bfloat16:
+            raise TypeError(f"{name}: widths {SPLIT_DIMS} are bfloat16 "
+                            "only")
+    elif q.shape[-1] not in HEAD_DIMS:
         raise ValueError(f"{name}: head dim {q.shape[-1]} not in "
                          f"{HEAD_DIMS}")
     for t in (q, *tensors):

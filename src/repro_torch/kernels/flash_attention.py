@@ -9,7 +9,9 @@ tensor cores would not hold float32's parity). ``attention_ref`` is its
 plain PyTorch version (the counterpart of
 ``repro.kernels.ref.attention_ref``). Query ``i`` sits at absolute
 position ``Skv - Sq + i``; a row with no visible key outputs zeros, as
-the kernel does (the JAX oracle's softmax would give NaN there).
+the kernel does (the JAX oracle's softmax would give NaN there). V may
+be narrower than Q and K (MLA's expanded prefill: qk 192, v 128, bf16
+only, ``_build.SPLIT_DIMS``); the output then has V's width.
 
 ``attention_chunked`` is ``repro.kernels.ref.attention_chunked``, the
 reference's memory-bounded plain path (``attn_impl="chunked"``): not a
@@ -27,8 +29,8 @@ from .autograd import KernelFunction, needs_grad
 
 
 def attention_ref(q, k, v, causal: bool = True, scale: float | None = None):
-    """Plain softmax attention with GQA; q (B,Sq,Hq,D), k/v (B,Skv,Hkv,D).
-    f32 math, output in q.dtype."""
+    """Plain softmax attention with GQA; q (B,Sq,Hq,D), k (B,Skv,Hkv,D),
+    v (B,Skv,Hkv,Dv). f32 math, output (B,Sq,Hq,Dv) in q.dtype."""
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     assert Hq % Hkv == 0, (Hq, Hkv)
@@ -95,7 +97,8 @@ def attention_chunked(q, k, v, causal: bool = True,
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     scale: float | None = None):
-    """q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D) -> (B, Sq, Hq, D).
+    """q: (B, Sq, Hq, D); k: (B, Skv, Hkv, D); v: (B, Skv, Hkv, Dv), Dv = D
+    or (D, Dv) in ``_build.SPLIT_DIMS`` -> (B, Sq, Hq, Dv).
 
     A CPU tensor goes to ``attention_ref``; a CUDA tensor launches the
     kernel of its dtype (or raises). Where autograd needs the gradient,
@@ -114,19 +117,21 @@ def _launch(q, k, v, causal, scale):
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     B, Sq, Hq, D = q.shape
-    if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B \
-            or k.shape[3] != D or Hq % k.shape[2]:
+    Dv = v.shape[-1]
+    if k.dim() != 4 or k.shape[:3] != v.shape[:3] or k.shape[0] != B \
+            or k.shape[3] != D or Hq % k.shape[2] \
+            or (Dv != D and (D, Dv) not in _build.SPLIT_DIMS):
         raise ValueError(f"flash_attention: bad shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
     Skv, Hkv = k.shape[1], k.shape[2]
     code = _build.check_tensors("flash_attention", q, k, v)
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
-    out = torch.empty_like(q)
+    out = q.new_empty((B, Sq, Hq, Dv))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if q.dtype == torch.bfloat16:
         err = _build.lib("attention_tc").repro_flash_attention_tc(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, Sq, Skv, Hq, Hkv, D, int(causal), scale, stream)
+            B, Sq, Skv, Hq, Hkv, D, Dv, int(causal), scale, stream)
     else:
         nsplit, bq = _build.launch_plan(Sq, Hq // Hkv, Hkv * B)
         err = _build.lib("attention").repro_flash_attention(

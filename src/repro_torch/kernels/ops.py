@@ -43,6 +43,7 @@ from ..dist.sharding import like, local_call
 from .flash_attention import attention_chunked, attention_ref, flash_attention
 from .flash_decode import decode_ref, flash_decode
 from .mamba2_ssd import ssd_chunked, ssd_chunked_ref, ssd_ref
+from .mla_decode import mla_paged_decode, mla_paged_decode_ref
 from .moe_gmm import gmm as gmm_kernel
 from .moe_gmm import gmm_ref
 from .paged_decode import (paged_decode, paged_decode_ref, paged_prefill,
@@ -56,7 +57,7 @@ SSD_IMPLS = ("auto", "ref", "chunked")
 GMM_IMPLS = ("auto", "ref")
 UTS_IMPLS = ("auto", "ref")
 KERNELS = (flash_attention, flash_decode, paged_decode, paged_prefill,
-           ssd_chunked, gmm_kernel, uts_expand)
+           ssd_chunked, gmm_kernel, uts_expand, mla_paged_decode)
 
 
 def kernel_launches() -> Dict[str, int]:
@@ -130,6 +131,21 @@ def attention(q, k, v, *, causal=True, scale=None, impl: str = "auto",
                                  block_q=CHUNKED_BLOCK_Q)
     fn = attention_ref if ref else flash_attention
     return fn(q, k, v, causal=causal, scale=scale)
+
+
+def latent_attention(q, pool, block_tables, lengths, *, v_dim: int,
+                     scale: float, impl: str = "auto"):
+    """MLA decode, the absorbed form: q (B, H, Dk) against the paged pool
+    of latent rows (NB, Bs, Dk), values the rows' first ``v_dim``
+    columns. ``impl`` is the model's ``decode_impl`` (one of ``IMPLS``):
+    ``auto`` and the kernel spellings run ``mla_paged_decode`` (the
+    kernel for a CUDA tensor, its plain version for a CPU one), every
+    ``*ref`` or ``chunked`` spelling ``mla_paged_decode_ref``."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown attention impl {impl!r}; have {IMPLS}")
+    ref = impl.endswith("ref") or impl == "chunked" or _meta(q)
+    fn = mla_paged_decode_ref if ref else mla_paged_decode
+    return fn(q, pool, block_tables, lengths, v_dim=v_dim, scale=scale)
 
 
 def ssd(x, dt, A, B, C, *, chunk: int = 64, impl: str = "auto"):

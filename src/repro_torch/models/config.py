@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,12 +44,53 @@ class ModelConfig:
     scan_layers: bool = True    # lax.scan over stacked layer params
     moe_impl: str = "auto"      # auto | global | ep (shard_map EP dispatch)
 
+    # --- latent attention (MLA) and shared-expert dropless MoE
+    # (DeepSeek-V2/V3 style; ``MLAConfig`` below). Plain class attributes
+    # here, not fields, so that ``dataclasses.asdict`` of every other
+    # configuration stays the JAX package's; ``MLAConfig`` makes them
+    # fields. kv_lora_rank 0 means GQA attention.
+    kv_lora_rank = 0            # latent width r of the cached row
+    qk_nope_head_dim = 0        # per-head q/k width without RoPE
+    qk_rope_head_dim = 0        # RoPE width, one key part shared by heads
+    v_head_dim = 0
+    moe_d_ff = 0                # routed (and shared) expert width
+    n_shared_experts = 0        # shared experts, one SwiGLU of their sum
+    first_k_dense = 0           # leading layers with a d_ff SwiGLU
+    routed_scale = 1.0          # routed weights' factor (DeepSeek router)
+    route_log = None            # a dict the paged engine records each
+                                # served token's experts into (MLAConfig)
+
     # ------------------------------------------------------------ derived
     @property
     def hd(self) -> int:
         if self.head_dim:
             return self.head_dim
         return self.d_model // max(self.n_heads, 1)
+
+    @property
+    def is_mla(self) -> bool:
+        return self.kv_lora_rank > 0
+
+    @property
+    def deepseek_moe(self) -> bool:
+        """MoE layers of the DeepSeek-V3 kind, an MLA config's: a sigmoid
+        router with a correction bias, the weights renormalised times
+        ``routed_scale``, shared experts, and dropless dispatch (every
+        (token, k) row computed). The other moe configs keep the JAX
+        package's softmax top-k with capacity drops."""
+        return self.is_mla and self.family == "moe"
+
+    @property
+    def latent_dim(self) -> int:
+        """Width of one cached MLA row: the latent and the RoPE key."""
+        return self.kv_lora_rank + self.qk_rope_head_dim
+
+    @property
+    def expert_d_ff(self) -> int:
+        return self.moe_d_ff or self.d_ff
+
+    def is_moe_layer(self, li: int) -> bool:
+        return self.family == "moe" and li >= self.first_k_dense
 
     @property
     def d_inner(self) -> int:
@@ -91,6 +132,8 @@ class ModelConfig:
         n += emb * (self.n_codebooks or 1)
         if not self.tie_embeddings:
             n += self.padded_vocab * D * (self.n_codebooks or 1)
+        if self.is_mla:
+            return n + self._count_mla(active_only)
         per_layer_attn = 0
         if self.n_heads:
             per_layer_attn = (
@@ -122,6 +165,25 @@ class ModelConfig:
             n += self.n_layers * (per_layer_attn + mlp + 2 * D)
         return n
 
+    def _count_mla(self, active_only: bool) -> int:
+        """Layers of an MLA model (embeddings counted by the caller, the
+        final norm not counted, as for the other families):
+        attention, its three norms, and a dense SwiGLU or the routed
+        experts (``top_k`` of them when active), shared experts, router
+        and correction bias."""
+        D, H, r = self.d_model, self.n_heads, self.kv_lora_rank
+        dn, dr, dv = (self.qk_nope_head_dim, self.qk_rope_head_dim,
+                      self.v_head_dim)
+        attn = (D * H * (dn + dr) + D * (r + dr) + r * H * (dn + dv)
+                + H * dv * D + 2 * D + r)
+        E, Fe = self.n_experts, self.expert_d_ff
+        e = self.top_k if active_only else E
+        moe = 3 * D * Fe * (e + self.n_shared_experts) + D * E + E
+        n = 0
+        for li in range(self.n_layers):
+            n += attn + (moe if self.is_moe_layer(li) else 3 * D * self.d_ff)
+        return n
+
     # ------------------------------------------------------ smoke variant
     def smoke(self) -> "ModelConfig":
         """Reduced same-family config for CPU smoke tests."""
@@ -147,6 +209,33 @@ class ModelConfig:
             dtype="float32",
             remat="none",
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig(ModelConfig):
+    """A ``ModelConfig`` with latent attention (``models.mla``) and, with
+    ``family="moe"``, shared-expert routed layers after ``first_k_dense``
+    dense ones (DeepSeek-V2/V3, Moonlight). ``n_heads`` query heads of
+    ``qk_nope_head_dim + qk_rope_head_dim``, values of ``v_head_dim``;
+    the cache holds one ``latent_dim``-wide row a token.
+
+    ``route_log``, where given a dict, is filled by the paged engine with
+    the experts every token of every request it serves was routed to:
+    under the request's prompt (a tuple) a list of uint8 tensors on the
+    device (positions, MoE layers, ``top_k``) that cover the positions
+    of the prompt and of every decoded token but the last, in order. A
+    checker holds a reference's routing to them where two choices lie
+    within rounding of each other; it is neither compared nor hashed."""
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    moe_d_ff: int = 0
+    n_shared_experts: int = 0
+    first_k_dense: int = 0
+    routed_scale: float = 1.0
+    route_log: Optional[dict] = dataclasses.field(default=None,
+                                                  compare=False, repr=False)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -28,6 +28,20 @@ divides ``n_experts``: data parallel over ``data`` (and ``pod``), each
 ``ep`` when it is given such a mesh (JAX's ``auto`` reads the ambient
 mesh) and ``global`` otherwise.
 
+``cfg.deepseek_moe`` (DeepSeek-V3 / Moonlight, ``_moe_fwd_dropless``)
+computes every routed (token, k) row: no capacity and no drops, so a
+token's output depends on its own row alone. Its router scores with a
+sigmoid in float32, chooses the top-k by score plus the layer's
+correction bias (``router_bias``), and weights the chosen scores
+renormalised to sum one times ``cfg.routed_scale``. The rows are sorted
+by expert and the three products run through ``gmm`` with the true group
+sizes; ``n_shared_experts`` adds one SwiGLU of width ``n_shared_experts
+* expert_d_ff`` that every token takes. Its aux
+carries ``moe_load``: (rows through ``gmm``, experts that got a row, the
+most rows on one expert), int64 on the device; and ``routes``, a list of
+the layer's chosen experts (T, K), to which ``run_layers`` appends every
+MoE layer's in order (what an engine with ``cfg.route_log`` records).
+
 On DTensors (the models under ``dist.sharding``'s rules) the mesh is
 the activations' own, and ``auto`` makes JAX's choice on it. ``ep`` is
 ``_moe_fwd_ep``'s local work on each rank's data shard and local experts
@@ -50,7 +64,7 @@ from ..dist import collectives as C
 from ..dist.sharding import local_call, replicated, shard_act
 from ..kernels import ops
 from .config import ModelConfig
-from .layers import dense_init
+from .layers import dense_init, mlp_fwd, mlp_init
 
 MOE_IMPLS = ("auto", "global", "ref", "ep")
 
@@ -58,14 +72,22 @@ MOE_IMPLS = ("auto", "global", "ref", "ep")
 def moe_init(cfg: ModelConfig, generator, device, dtype):
     """Router (D, E) and expert weights wg, wi (E, D, F), wo (E, F, D),
     with the distributions of ``repro.models.moe.moe_init``, stored in
-    ``dtype``."""
-    D, Fd, E = cfg.d_model, cfg.d_ff, cfg.n_experts
-    return {
+    ``dtype``; dropless (the sigmoid router) also its correction bias
+    ``router_bias`` (E,) float32 (zeros), and with shared experts their
+    SwiGLU ``shared`` (D, n_shared * F)."""
+    D, Fd, E = cfg.d_model, cfg.expert_d_ff, cfg.n_experts
+    p = {
         "router": dense_init((D, E), generator, device).to(dtype),
         "wg": dense_init((E, D, Fd), generator, device, in_axis=1).to(dtype),
         "wi": dense_init((E, D, Fd), generator, device, in_axis=1).to(dtype),
         "wo": dense_init((E, Fd, D), generator, device, in_axis=1).to(dtype),
     }
+    if cfg.deepseek_moe:
+        p["router_bias"] = torch.zeros(E, dtype=torch.float32, device=device)
+    if cfg.n_shared_experts:
+        p["shared"] = mlp_init(D, cfg.n_shared_experts * Fd, generator,
+                               device, dtype)
+    return p
 
 
 def capacity(T: int, cfg: ModelConfig) -> int:
@@ -121,6 +143,13 @@ def moe_fwd(p, x, cfg: ModelConfig, expert_perm=None,
     if cfg.moe_impl not in MOE_IMPLS:
         raise ValueError(f"unknown moe_impl {cfg.moe_impl!r}; have "
                          f"{MOE_IMPLS}")
+    if cfg.deepseek_moe:
+        if isinstance(x, DTensor) or expert_perm is not None or \
+                mesh is not None:
+            raise NotImplementedError(
+                "dropless MoE: no expert placement, expert parallelism or "
+                "sharding rules")
+        return _moe_fwd_dropless(p, x, cfg)
     if isinstance(x, DTensor):
         if _ep_mesh(cfg, x.device_mesh) is not None:
             return _moe_fwd_ep_dt(p, x, cfg, expert_perm)
@@ -172,6 +201,51 @@ def moe_fwd(p, x, cfg: ModelConfig, expert_perm=None,
     return y.reshape(B, S, D), {"aux_loss": aux_loss,
                                 "expert_counts": counts,
                                 "dropped": dropped, "capacity": cap}
+
+
+def route_sigmoid(p, xt, cfg: ModelConfig):
+    """The sigmoid router (DeepSeek-V3 ``noaux_tc`` with one group):
+    scores s = sigmoid(xt W_r) in float32 (T, E); the top-k experts by s
+    plus the correction bias (the bias moves the choice only); their
+    weights the chosen s over their sum, times ``cfg.routed_scale``.
+    Returns (weights (T, K) float32, experts (T, K) int64)."""
+    s = torch.sigmoid(xt.float() @ p["router"].float())
+    _, idx = _top_k(s + p["router_bias"].float(), cfg.top_k)
+    w = s.gather(1, idx)
+    return w / w.sum(-1, keepdim=True) * cfg.routed_scale, idx
+
+
+def _moe_fwd_dropless(p, x, cfg: ModelConfig):
+    """Every (token, k) row computed (see the module docstring): the rows
+    sorted by expert (stable), ``gmm`` over the true group sizes, the K
+    weighted terms of each token added in order, then the shared
+    experts. No host sync."""
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    T = B * S
+    xt = x.reshape(T, D)
+    gate_vals, gate_idx = route_sigmoid(p, xt, cfg)
+    flat = gate_idx.reshape(T * K)
+    sorted_e, order = torch.sort(flat, stable=True)
+    bounds = torch.searchsorted(
+        sorted_e, torch.arange(E + 1, dtype=sorted_e.dtype, device=x.device))
+    counts = bounds[1:] - bounds[:-1]                            # (E,)
+    dest = torch.empty_like(order)
+    dest[order] = torch.arange(T * K, device=x.device)
+    rows = xt[order // K]                             # grouped by expert
+    impl = "ref" if cfg.moe_impl == "ref" else "auto"
+    sizes = counts.to(torch.int32)
+    mm = lambda a, w: ops.gmm(a, w, sizes, impl=impl)
+    h = F.silu(mm(rows, p["wg"])) * mm(rows, p["wi"])
+    y = _combine(mm(h, p["wo"]), dest, gate_vals, K)
+    if "shared" in p:
+        y = y + mlp_fwd(p["shared"], xt)
+    zero = torch.zeros((), device=x.device)
+    load = torch.stack([counts.sum(), (counts > 0).sum(), counts.max()])
+    return y.reshape(B, S, D), {"aux_loss": zero,
+                                "expert_counts": counts.float(),
+                                "dropped": zero, "capacity": T * K,
+                                "moe_load": load, "routes": [gate_idx]}
 
 
 def _balance(probs, flat_idx, E: int):

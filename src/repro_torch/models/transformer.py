@@ -1,6 +1,9 @@
 """Decoder-only LM assembly for every family of the JAX package:
   dense/vlm/audio : [rmsnorm -> GQA attn -> rmsnorm -> SwiGLU] x L
-  moe             : [rmsnorm -> GQA attn -> rmsnorm -> MoE] x L
+  moe             : [rmsnorm -> GQA attn -> rmsnorm -> MoE] x L; with a
+                    ``kv_lora_rank`` (``MLAConfig``) the attention is MLA
+                    (``models.mla``) and the first ``first_k_dense``
+                    layers take a d_ff SwiGLU in place of the MoE
   ssm             : [rmsnorm -> Mamba2] x L
   hybrid (zamba2) : [rmsnorm -> Mamba2] x L, plus ONE weight-shared
                     (attn + MLP) block applied after every ``attn_every``-th
@@ -60,6 +63,7 @@ from .attention import attn_fwd, attn_init
 from .config import ModelConfig
 from .layers import embed_init, mlp_fwd, mlp_init, resolve_device, rmsnorm
 from .mamba2 import STATE_KEYS, mamba_fwd, mamba_init
+from .mla import mla_fwd, mla_init
 from .moe import moe_fwd, moe_init
 
 
@@ -74,7 +78,7 @@ REMATS = ("none", "dots", "full")
 # them: norm scales, and Mamba2's A_log, D, dt_bias (cast at use by
 # ``mamba_fwd``).
 F32_LEAVES = ("ln1", "ln2", "final_ln", "ln", "gate_norm", "A_log", "D",
-              "dt_bias")
+              "dt_bias", "kv_norm", "router_bias")
 
 
 def cast_params(tree, dtype: torch.dtype):
@@ -96,8 +100,8 @@ def _check_family(cfg: ModelConfig) -> None:
 def _attn_mlp_init(cfg: ModelConfig, generator, device, dt):
     zeros = lambda: torch.zeros(cfg.d_model, dtype=torch.float32,
                                 device=device)
-    return {"ln1": zeros(), "attn": attn_init(cfg, generator, device, dt),
-            "ln2": zeros()}
+    attn = (mla_init if cfg.is_mla else attn_init)(cfg, generator, device, dt)
+    return {"ln1": zeros(), "attn": attn, "ln2": zeros()}
 
 
 def init_lm(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
@@ -118,13 +122,13 @@ def init_lm(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         params["head"] = embed_init(K + (D, Vp), generator, device).to(dt)
     zeros = lambda: torch.zeros(D, dtype=torch.float32, device=device)
     params["blocks"] = []
-    for _ in range(cfg.n_layers):
+    for li in range(cfg.n_layers):
         if cfg.family in ("ssm", "hybrid"):
             blk = {"ln": zeros(),
                    "mamba": mamba_init(cfg, generator, device, dt)}
         else:
             blk = _attn_mlp_init(cfg, generator, device, dt)
-            if cfg.family == "moe":
+            if cfg.is_moe_layer(li):
                 blk["moe"] = moe_init(cfg, generator, device, dt)
             else:
                 blk["mlp"] = mlp_init(D, cfg.d_ff, generator, device, dt)
@@ -185,7 +189,12 @@ def make_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
         zeros = lambda name, shape, dt: sharded_zeros(shape, dt, axes[name],
                                                       mesh, device)
     cache = {}
-    if n_attn_caches(cfg):
+    if cfg.is_mla:
+        # one latent row a token (the prefill row of the paged engine;
+        # MLA decode reads the paged pool only)
+        cache["kv"] = zeros("kv", (cfg.n_layers, batch, max_seq,
+                                   cfg.latent_dim), dtype)
+    elif n_attn_caches(cfg):
         kv = (n_attn_caches(cfg), batch, max_seq, cfg.n_kv_heads, cfg.hd)
         cache["k"] = zeros("k", kv, dtype)
         cache["v"] = zeros("v", kv, dtype)
@@ -197,7 +206,9 @@ def make_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
                      slots: int, dtype=None,
                      device=None) -> Dict[str, torch.Tensor]:
     """Paged serving cache: per-layer k/v pools of ``num_blocks`` blocks of
-    ``block_size`` tokens, indirected through per-sequence block tables.
+    ``block_size`` tokens, indirected through per-sequence block tables
+    (an MLA config: one latent pool ``kv`` (L, num_blocks + 1, block_size,
+    ``latent_dim``), one row a token for every head).
     Each pool holds ONE extra block, index ``num_blocks``: the sink that
     dropped writes (idle slots, table entries past an allocation) go to,
     where JAX drops them. No table points at it and no kernel reads it.
@@ -207,7 +218,11 @@ def make_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
     device = resolve_device(device)
     dtype = dtype or compute_dtype(cfg)
     cache = {}
-    if n_attn_caches(cfg):
+    if cfg.is_mla:
+        cache["kv"] = torch.zeros((cfg.n_layers, num_blocks + 1, block_size,
+                                   cfg.latent_dim), dtype=dtype,
+                                  device=device)
+    elif n_attn_caches(cfg):
         kv = (n_attn_caches(cfg), num_blocks + 1, block_size,
               cfg.n_kv_heads, cfg.hd)
         cache["k"] = torch.zeros(kv, dtype=dtype, device=device)
@@ -224,6 +239,9 @@ def _zero_aux(cfg: ModelConfig, x):
     if cfg.family == "moe":
         aux["expert_counts"] = z(cfg.n_experts)
         aux["dropped"] = z()
+    if cfg.deepseek_moe:
+        aux["moe_load"] = torch.zeros(3, dtype=torch.int64, device=x.device)
+        aux["routes"] = []      # each MoE layer's (T, K) experts, in order
     return aux
 
 
@@ -242,6 +260,13 @@ def _attention(cfg, bp, x, positions, cache, ci, cache_len, mode,
                block_tables):
     """x + attention of ``bp`` (a block or the shared block) on k/v cache
     layer ``ci`` (a view, updated in place)."""
+    if cfg.is_mla:
+        h, _ = mla_fwd(bp["attn"], rmsnorm(x, bp["ln1"], cfg.norm_eps),
+                       positions, cfg,
+                       cache=_layer_of(cache["kv"], ci) if cache else None,
+                       cache_len=cache_len, mode=mode,
+                       block_tables=block_tables)
+        return x + h
     acache = ({"k": _layer_of(cache["k"], ci), "v": _layer_of(cache["v"], ci)}
               if cache else None)
     h, _ = attn_fwd(bp["attn"], rmsnorm(x, bp["ln1"], cfg.norm_eps),
@@ -289,7 +314,7 @@ def _layer(cfg, bp, sp, li, x, positions, cache, cache_len, mode,
     x = _attention(cfg, bp, x, positions, cache, li, cache_len, mode,
                    block_tables)
     hin = rmsnorm(x, bp["ln2"], cfg.norm_eps)
-    if cfg.family == "moe":
+    if cfg.is_moe_layer(li):
         h, aux = moe_fwd(bp["moe"], hin, cfg)
         return x + reduced(h), aux
     return x + reduced(mlp_fwd(bp["mlp"], hin)), None
@@ -328,7 +353,8 @@ def run_layers(params, cfg: ModelConfig, x, positions, cache, cache_len,
     """Apply every block; caches are per-layer views updated in place.
     Returns (x, cache, aux): aux sums each layer's ``aux_loss`` (and, for
     the moe family, ``expert_counts`` and ``dropped``) as JAX's scan
-    does."""
+    does; a DeepSeek MoE's ``moe_load`` is summed likewise and its
+    ``routes`` lists are joined."""
     aux = _zero_aux(cfg, x)
     for li in range(cfg.n_layers):
         if mode == "train":

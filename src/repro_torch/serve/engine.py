@@ -18,9 +18,10 @@ flat block pools (``models.make_paged_cache``) mapped per sequence by
 ``serve.kvpool``, every step planned by the continuous-batching scheduler
 (lookahead reservation, watermark preemption with resume-by-recompute,
 token budget, FIFO admission), decode through the paged kernel.
-A single-shot paged admission of a family whose prefill rows are
-independent under causal attention (``PAD_TO_BLOCK``: dense, and vlm,
-whose engine prompts are text tokens) pads its prefix only to the pool's
+A single-shot paged admission of a config whose prefill rows are
+independent under causal attention (``pads_to_block``: the
+``PAD_TO_BLOCK`` families dense, and vlm, whose engine prompts are text
+tokens, and a dropless moe config) pads its prefix only to the pool's
 block size, the unit the copy into the pool moves: the pad rows come
 after the prompt, no real row attends to them, and only the last real
 row is sampled. Every other admission pads to a multiple of ``pad_len``,
@@ -44,7 +45,27 @@ batch-global, so a token depends on what every other row of the same
 forward routes: each decode step runs all ``max_slots`` rows (idle ones
 included, with their last token) and each admission its whole ``pad_len``
 bucket, as the JAX engine does, since its pad rows change which real
-tokens are dropped.
+tokens are dropped. A dropless moe config (``cfg.deepseek_moe``: every
+routed row computed, as Moonlight's) has no such interaction: its
+admissions pad to the block size like the dense family's. Its forwards'
+MoE load (``moe_load``: rows through ``gmm``, experts hit, the most rows
+on one expert, summed over layers) is accumulated on the device and read
+with the drain's one copy: the sums go onto the ``prefill`` and
+``decode_loop`` spans' end args (``moe_rows``, ``moe_experts_hit``,
+``moe_max_rows``) and into ``stats()``. Where the config carries a
+``route_log`` dict, each admission and each decode loop also leave
+there, on the device and without a sync, the experts each token of each
+request was routed to (what a plain reference is held to where expert
+choices tie within rounding).
+
+An MLA config (``cfg.is_mla``, ``models.mla``) caches one latent row a
+token for every head: the paged cache is one leaf ``kv`` (L, num_blocks
++ 1, block_size, ``latent_dim``), which the admission's block copy, the
+copy-on-write copies and decode's paged write move like the k/v pools;
+the reused prefill row is (L, 1, max_seq, ``latent_dim``). Paths not
+built for latent rows raise: the contiguous engine, chunked prefill and
+the prefix cache (``paged_prefill`` over latent blocks), and live
+migration.
 
 ``GLBReplicaBalancer`` drives a fabric of engines with the GLB lifeline
 protocol in two tiers: queued requests first, then, with
@@ -83,8 +104,10 @@ from .kvpool import KVPool, PoolExhausted
 from .radix import RadixPrefixCache
 from .scheduler import ContinuousBatchingScheduler
 
-KV_LEAVES = ("k", "v")       # attention caches; every other leaf is
-                             # recurrent per-slot state
+KV_LEAVES = ("k", "v", "kv")     # attention caches (kv: MLA's latent
+                                 # rows); every other leaf is recurrent
+                                 # per-slot state
+MOE_LOAD = ("moe_rows", "moe_experts_hit", "moe_max_rows")
 
 # Default KV block size of the paged pool, chosen for the H100: 16 tokens
 # of one KV head at head dim 64 in bf16 is 2 KiB, small enough that the
@@ -95,11 +118,19 @@ DEFAULT_BLOCK_SIZE = 16
 
 # Families whose prefill rows do not interact beyond causal attention, so
 # that a paged admission's pad rows change no real row: it pads them to
-# the block size. The moe family's capacity drops are batch-global and the
-# ssm and hybrid families run pad rows through the recurrence, so those
-# keep the ``pad_len`` bucket; the audio family's (S, K) token rows never
-# reach the engine, which serves one token id a position.
+# the block size. The moe family's capacity drops are batch-global (a
+# dropless moe config, whose rows are independent, pads to the block too:
+# ``pads_to_block``) and the ssm and hybrid families run pad rows through
+# the recurrence, so those keep the ``pad_len`` bucket; the audio family's
+# (S, K) token rows never reach the engine, which serves one token id a
+# position.
 PAD_TO_BLOCK = ("dense", "vlm")
+
+
+def pads_to_block(cfg: ModelConfig) -> bool:
+    """Whether a paged admission of ``cfg`` pads its prefix to the block
+    size (else to a multiple of ``pad_len``)."""
+    return cfg.family in PAD_TO_BLOCK or cfg.deepseek_moe
 
 
 class _Phases:
@@ -145,13 +176,15 @@ class _Phases:
             self._seq += 1
             top[-1][2:] = [self._record(), self._seq]
 
-    def end(self, tid: int = 0, args: Optional[dict] = None) -> None:
+    def end(self, tid: int = 0, args: Optional[dict] = None):
+        """End the innermost span on ``tid``; returns its end event."""
         self.stop_clock(tid)
         rng, start, stop, seq = self._open[tid].pop()
         rng.__exit__(None, None, None)
         ev = self.tracer.end(pid=self.pid, tid=tid, args=args)
         if start is not None:
             self._pending.append((ev, start, stop, seq))
+        return ev
 
     def unwind(self) -> None:
         """End every span still open, innermost first: after a step, its
@@ -261,6 +294,17 @@ class Engine:
                  replica_id: int = 0, device=None):
         if slo_admission and not paged:
             raise ValueError("slo_admission needs the paged scheduler")
+        if cfg.is_mla and (not paged or prefix_cache
+                           or prefill_chunk is not None):
+            raise ValueError(
+                "an MLA config runs on the paged engine's single-shot "
+                "admissions only: the contiguous engine, chunked prefill "
+                "and the prefix cache (paged_prefill over latent blocks) "
+                "are not built for latent rows")
+        if cfg.route_log is not None and not (
+                cfg.deepseek_moe and cfg.n_experts <= 256):
+            raise ValueError("route_log records the DeepSeek router's "
+                             "choices (uint8 ids: at most 256 experts)")
         if cfg.family in ("ssm", "hybrid") and (
                 prefix_cache or prefill_chunk is not None):
             # Recurrent conv/ssm state is not block-addressable: a cached
@@ -303,6 +347,11 @@ class Engine:
         self.prefill_tokens = 0
         self._phases = (_Phases(self.tracer, replica_id, self.device)
                         if self.tracer.enabled else None)
+        # dropless MoE load (MOE_LOAD) read so far, and the device sums
+        # still to read at a drain, each with its span's end event
+        self.moe_load = np.zeros(len(MOE_LOAD), np.int64)
+        self._moe_unread = []
+        self._route_recs = {}       # rid -> its list in cfg.route_log
         self.peak_running = 0  # max concurrent sequences observed
         self.peak_occupancy = 0.0   # paged: max pool occupancy observed
         self.peak_fragmentation = 0.0
@@ -361,35 +410,84 @@ class Engine:
         return sample_tokens(logits[..., :self.cfg.vocab], self._gen,
                              self.temperature)
 
-    def _decode_n(self, bt, lens, budget) -> np.ndarray:
+    def _note_load(self, aux) -> Optional[list]:
+        """Queue a forward's dropless MoE load (device sums) for the next
+        drain; returns its entry, whose second item a span's end event
+        may fill, or None for a config without it."""
+        if "moe_load" not in aux:
+            return None
+        entry = [aux["moe_load"], None]
+        self._moe_unread.append(entry)
+        return entry
+
+    @staticmethod
+    def _routes(aux) -> torch.Tensor:
+        """A forward's expert choices (rows, MoE layers, top_k), uint8 on
+        the device."""
+        return torch.stack(aux["routes"], 1).to(torch.uint8)
+
+    def _decode_n(self, bt, lens, budget):
         """steps_per_sync decode steps on the device (one recurrence for
         both cache layouts; ``bt`` is None for contiguous). Carries
         per-slot done masks (idle: lens < 0; finished: budget == 0) and
         fills an (N, slots) token buffer (-1 where a slot emitted nothing)
-        that the host drains with one sync."""
+        that the host drains with one sync. Returns (buffer, the loop's
+        MoE load (MOE_LOAD) or None, and with ``cfg.route_log`` the loop's
+        expert choices (N, slots, MoE layers, top_k), else None)."""
         tokens = self._dev(self.tokens)
         lens = self._dev(lens)
         budget = self._dev(budget)
         buf = torch.full((self.steps_per_sync, self.max_slots), -1,
                          dtype=torch.int32, device=self.device)
+        load = None
+        routes = [] if self.cfg.route_log is not None else None
         for t in range(self.steps_per_sync):
             active = (lens >= 0) & (budget > 0)
             step_lens = torch.where(active, lens, -1)
-            logits, _ = decode_step(self.params, self.cfg, tokens,
-                                    self.cache, step_lens, block_tables=bt)
+            logits, _, aux = forward(self.params, self.cfg, tokens,
+                                     cache=self.cache, cache_len=step_lens,
+                                     mode="decode", block_tables=bt)
+            if "moe_load" in aux:
+                load = aux["moe_load"] if load is None else \
+                    load + aux["moe_load"]
+            if routes is not None:
+                routes.append(self._routes(aux))
             nxt = torch.where(active, self._sample(logits[:, 0]), -1)
             buf[t] = nxt
             lens = torch.where(active, lens + 1, lens)
             budget = torch.where(active, budget - 1, budget)
             budget = torch.where(lens >= self.max_seq - 1, 0, budget)
             tokens = torch.where(active[:, None], nxt[:, None], tokens)
+        loop = self._note_load({"moe_load": load}) if load is not None \
+            else None
         if self.tracer.enabled:
             self._phases.stop_clock()
-        buf = buf.cpu().numpy()             # the single drain
+        buf = self._drain_copy(buf)         # the single drain
         self.host_syncs += 1
         if self.tracer.enabled:
             self._phases.synced()
-        return buf
+        return (buf, None if loop is None else loop[0],
+                None if routes is None else torch.stack(routes))
+
+    def _drain_copy(self, buf) -> np.ndarray:
+        """The drain's one device->host copy: the token buffer and, with
+        it, every MoE load still on the device. Each load is added to
+        ``moe_load``, put on its span's end event, and left in its entry
+        as numbers."""
+        if not self._moe_unread:
+            return buf.cpu().numpy()
+        loads = [e[0] for e in self._moe_unread]
+        got = torch.cat([buf.reshape(-1).long()] + loads).cpu().numpy()
+        n = buf.numel()
+        for k, entry in enumerate(self._moe_unread):
+            vals = got[n + 3 * k:n + 3 * k + 3]
+            self.moe_load += vals
+            entry[0] = vals
+            if entry[1] is not None:
+                entry[1].setdefault("args", {}).update(
+                    zip(MOE_LOAD, (int(v) for v in vals)))
+        self._moe_unread = []
+        return got[:n].reshape(tuple(buf.shape)).astype(np.int32)
 
     def submit(self, req: Request):
         # An empty prompt has no position to sample a first token from.
@@ -498,9 +596,10 @@ class Engine:
                 # straight into the slot's rows (a view of the cache).
                 row = {n: c[:, i:i + 1] for n, c in self.cache.items()}
                 self._scrub(row)
-                logits, _, _ = forward(self.params, self.cfg,
-                                       self._dev(toks), cache=row,
-                                       cache_len=0, mode="prefill")
+                logits, _, aux = forward(self.params, self.cfg,
+                                         self._dev(toks), cache=row,
+                                         cache_len=0, mode="prefill")
+                self._note_load(aux)
                 first = int(self._sample(logits[0, true_len - 1]))
                 self.host_syncs += 1        # one sync per admission
                 req.out.append(first)
@@ -561,10 +660,12 @@ class Engine:
                 self.sched.release(req.rid)
                 self.sched.slot_released(i)
 
-    def _drain(self, buf: np.ndarray):
+    def _drain(self, buf: np.ndarray, routes=None):
         """Extend per-request outputs from the (N, slots) token buffer and
         mirror the device lens/budget recurrence on the host. Mid-prefill
-        slots emitted nothing and skip their finish checks."""
+        slots emitted nothing and skip their finish checks. ``routes``
+        (the loop's expert choices) go to ``cfg.route_log``: a slot that
+        emitted n tokens ran its first n iterations."""
         for i, req in enumerate(self.slots):
             if req is None:
                 continue
@@ -574,6 +675,8 @@ class Engine:
             toks = toks[toks >= 0]
             req.out.extend(int(t) for t in toks)
             n = len(toks)
+            if routes is not None and n:
+                self._route_recs[req.rid].append(routes[:n, i])
             if n:
                 self.tokens[i, 0] = toks[-1]
             self.lens[i] += n
@@ -626,15 +729,14 @@ class Engine:
         padded prefix into the reused row, then copy the prefix's k/v
         blocks into the pool blocks the scheduler allocated; recurrent
         leaves are slot-dense and land at ``slot``. The prefix is padded
-        to a multiple of the block size for the ``PAD_TO_BLOCK`` families
+        to a multiple of the block size where ``pads_to_block`` says so
         (the rows of the blocks it covers are what a ``pad_len`` bucket
         would write there, under causal attention), and to a multiple of
         ``pad_len`` for the others, whose pad rows reach real ones through
         batch-global routing or the recurrence."""
         prefix = self._prefix_tokens(req)
         true_len = len(prefix)
-        q = (self.block_size if self.cfg.family in PAD_TO_BLOCK
-             else self.pad_len)
+        q = self.block_size if pads_to_block(self.cfg) else self.pad_len
         bucket = min(-(-true_len // q) * q, self.max_seq)
         toks = np.zeros((1, bucket), np.int32)
         toks[0, :true_len] = prefix
@@ -644,8 +746,15 @@ class Engine:
         self._span_begin("prefill", slot,
                          {"rid": req.rid, "tokens": true_len})
         self._scrub(self._row)
-        logits, _, _ = forward(self.params, self.cfg, self._dev(toks),
-                               cache=self._row, cache_len=0, mode="prefill")
+        logits, _, aux = forward(self.params, self.cfg, self._dev(toks),
+                                 cache=self._row, cache_len=0,
+                                 mode="prefill")
+        load = self._note_load(aux)
+        if self.cfg.route_log is not None:
+            # a resumed request's prefix is prefilled anew: its record too
+            rec = [self._routes(aux)[:true_len]]
+            self._route_recs[req.rid] = self.cfg.route_log[
+                tuple(req.prompt)] = rec
         n_pb = -(-true_len // self.block_size)
         ids = self._dev(np.asarray(self.pool.block_table(req.rid)[:n_pb],
                                    np.int64))
@@ -660,8 +769,10 @@ class Engine:
         first = self._sample(logits[0, true_len - 1])
         self._arm_decode(slot, req, first)
         if self.tracer.enabled:
-            self._phases.end(tid=1 + slot,
-                             args={"rows": bucket, "tokens": true_len})
+            ev = self._phases.end(tid=1 + slot,
+                                  args={"rows": bucket, "tokens": true_len})
+            if load is not None:
+                load[1] = ev
         self.metrics.histogram("prefill_chunk_ms").observe(
             (now_us() - t0) / 1e3)
         self.lens[slot] = true_len
@@ -682,9 +793,10 @@ class Engine:
         self._span_begin("prefill_chunk", slot,
                          {"rid": req.rid, "start": start, "end": end,
                           "last": last})
-        logits, _, _ = forward(self.params, self.cfg, self._dev(toks),
-                               cache=self.cache, cache_len=start,
-                               mode="prefill", block_tables=self._dev(bt))
+        logits, _, aux = forward(self.params, self.cfg, self._dev(toks),
+                                 cache=self.cache, cache_len=start,
+                                 mode="prefill", block_tables=self._dev(bt))
+        self._note_load(aux)
         if self.tracer.enabled:
             self._phases.end(tid=1 + slot)
         self.metrics.histogram("prefill_chunk_ms").observe(
@@ -722,6 +834,9 @@ class Engine:
         ``written``, as a preemption resume does. Mid-prefill slots are
         rejected."""
         assert self.paged, "live migration needs the paged KV pool"
+        if self.cfg.is_mla:
+            raise NotImplementedError(
+                "live migration of a latent (MLA) sequence is not built")
         req = self.slots[slot]
         assert req is not None, f"slot {slot} is idle"
         if self.sched.mid_prefill(slot):
@@ -924,13 +1039,16 @@ class Engine:
             ).astype(np.int32)
             if self.tracer.enabled:
                 self._phases.begin("decode_loop", timed=True)
-            buf = self._decode_n(self._device_tables(), step_lens,
-                                 step_budget)
+            buf, load, routes = self._decode_n(self._device_tables(),
+                                               step_lens, step_budget)
             if self.tracer.enabled:
-                self._phases.end(args={"iters": self.steps_per_sync,
-                                       "active": int(plan.active.sum())})
+                args = {"iters": self.steps_per_sync,
+                        "active": int(plan.active.sum())}
+                if load is not None:
+                    args.update(zip(MOE_LOAD, (int(v) for v in load)))
+                self._phases.end(args=args)
                 self._phases.begin("drain")
-            self._drain(buf)
+            self._drain(buf, routes)
             if self.tracer.enabled:
                 self._phases.end()
         self.steps += 1
@@ -964,7 +1082,7 @@ class Engine:
         self.peak_running = max(
             self.peak_running, sum(s is not None for s in self.slots)
         )
-        buf = self._decode_n(None, self.lens, self.budget)
+        buf, _, _ = self._decode_n(None, self.lens, self.budget)
         self._drain(buf)
         self.steps += 1
 
@@ -1007,6 +1125,8 @@ class Engine:
                     migrations_in=self.migrations_in,
                     migrations_seeded=self.migrations_seeded,
                     migrations_recompute=self.migrations_recompute)
+        if self.cfg.deepseek_moe:
+            sync.update(zip(MOE_LOAD, (int(v) for v in self.moe_load)))
         if self.paged:
             sync.update(
                 admissions=self.sched.admissions,

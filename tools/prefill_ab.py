@@ -26,7 +26,8 @@ with ``git archive`` into a directory that ``.gitignore`` lists) it also
 builds that checkout's ``attention_tc.cu`` and times ``flash_attention``
 at both 256-token prompt shapes through it and through the committed
 source, in turns (parent, built, built, parent in each pass), to show
-whether sharing the tile loop moved it.
+whether sharing the tile loop moved it. Its ``repro_flash_attention_tc``
+must take this checkout's arguments (``D`` and ``Dv`` both).
 
 The variants are built beside the committed source under
 ``build/prefill_ab/``. Each case is timed twice, the second pass in the
